@@ -1,0 +1,58 @@
+"""Task-graph scheduling extensions — the PyTorch/CUDA port.
+
+Same API v2 surface as the reference package, on PyTorch tensors and a
+CUDA device::
+
+    import repro_torch
+
+    g = repro_torch.Graph("pipeline")
+    a = g.add(lambda: 2, name="a")
+    b = g.add(lambda x: x * 21, a, name="b")      # dep inferred from `a`
+    with repro_torch.Session(workers=2) as s:
+        report = s.run(g)
+    assert report[b] == 42
+
+Tensor-making entry points (:mod:`repro_torch.linalg`) default to the CUDA
+device and raise when there is none; pass ``device="cpu"`` to run on the
+host.  ``import repro_torch`` pulls in no torch; the kernels and linalg
+subpackages do.
+"""
+
+from .api import Graph, Plan, PlanError, RunReport, Session, TaskHandle
+from .core import (
+    Channel,
+    ChannelEmpty,
+    ChannelFull,
+    DeadlockError,
+    ParallelSpec,
+    Runtime,
+    Task,
+    TaskContext,
+    TaskEvent,
+    TaskGraph,
+    run_graph,
+)
+from .core.policies import PolicyError, available_policies, register_policy
+
+__all__ = [
+    "Channel",
+    "ChannelEmpty",
+    "ChannelFull",
+    "DeadlockError",
+    "Graph",
+    "ParallelSpec",
+    "Plan",
+    "PlanError",
+    "PolicyError",
+    "Runtime",
+    "RunReport",
+    "Session",
+    "Task",
+    "TaskContext",
+    "TaskEvent",
+    "TaskGraph",
+    "TaskHandle",
+    "available_policies",
+    "register_policy",
+    "run_graph",
+]

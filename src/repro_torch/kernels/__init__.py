@@ -1,0 +1,32 @@
+"""Hand-written Hopper kernels of the port, their plain PyTorch versions and
+their launch counts.
+
+* :mod:`~repro_torch.kernels.ops` — public entry points
+  (``ops.tile_matmul``), dispatched by the device of the tensors;
+* :mod:`~repro_torch.kernels.tile_matmul` — the wrapper of the tile GEMM
+  with epilogue that carries the factorizations' trailing update
+  (``csrc/tile_matmul.cu``);
+* :mod:`~repro_torch.kernels.ref` — the plain versions;
+* :func:`launch_counts` / :func:`reset_launch_counts` — every kernel's
+  launch count, for showing that a run went through the kernels.
+"""
+
+from typing import Dict
+
+from . import ops, ref
+from .tile_matmul import launches as _tile_matmul_launches
+
+#: every kernel's launch counter, by kernel name
+COUNTERS = {c.name: c for c in (_tile_matmul_launches,)}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: c.count for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+__all__ = ["COUNTERS", "launch_counts", "ops", "ref", "reset_launch_counts"]

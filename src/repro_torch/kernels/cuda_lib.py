@@ -1,0 +1,133 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  At
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+under ``build/kernels/`` at the root of the checkout, named by a hash of
+the source and the flags, so an unchanged source is never rebuilt; the
+library is then loaded with :mod:`ctypes`.  A failed build raises
+:class:`BuildError` carrying ``nvcc``'s output — there is no fallback.
+
+Every kernel wrapper owns a :class:`LaunchCounter` and adds one to it where
+it launches its kernel, and nowhere else, so a run can show that its path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["BUILD_DIR", "BuildError", "LaunchCounter", "build", "load",
+           "library_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: ``<checkout>/build/kernels`` (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class BuildError(RuntimeError):
+    """A kernel source failed to compile (or no ``nvcc`` was found)."""
+
+
+class LaunchCounter:
+    """A kernel's launch count: a plain integer, bumped under a lock because
+    several worker threads launch the same kernel concurrently."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the CUDA
+    toolkit's default location."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [str(Path(home) / "bin" / "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.access(c, os.X_OK):
+            return c
+    raise BuildError("no nvcc found (set CUDA_HOME or put nvcc on PATH); "
+                     "the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed on a
+    hash of the source text and the compiler flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together; returns each name's build seconds (0.0
+    for a library already built).  ``nvcc``'s report (``-Xptxas -v``:
+    registers, shared memory, spills) is kept beside each library as
+    ``.log``."""
+    names = list(dict.fromkeys(names))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = {}
+    seconds: Dict[str, float] = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, tmp, lib, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, lib, t0) in pending.items():
+        output, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        lib.with_suffix(".log").write_text(output)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed on csrc/{name}.cu "
+                            f"(exit {proc.returncode}):\n{output}")
+        else:
+            os.replace(tmp, lib)
+    if failures:
+        raise BuildError("\n".join(failures))
+    return seconds
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _load_lock:
+        if name not in _libs:
+            build([name])
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return _libs[name]

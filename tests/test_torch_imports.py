@@ -1,0 +1,38 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the reference
+package, in a fresh interpreter and in its source text."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_without_jax_or_reference_package():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.linalg, repro_torch.kernels\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
+    r"|from\s+(jax|jaxlib|repro)(\.|\s)(?!_torch))", re.M)
+
+
+def test_port_source_has_no_jax_or_reference_imports():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    assert len(files) > 20
+    offenders = []
+    for f in files:
+        for m in _FORBIDDEN.finditer(f.read_text()):
+            offenders.append(f"{f.relative_to(SRC)}: {m.group(0).strip()}")
+    assert not offenders, offenders
