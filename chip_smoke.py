@@ -1,27 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--n 7680] [--tile 192]
+    python3 chip_smoke.py [--n 7680] [--tile 192] [--requests 12]
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``.
 Phases, each printed as one JSON line:
 
 1. the card (also the raw ``nvidia-smi`` name and power limit line);
-2. the build of every kernel from ``src/repro_torch/kernels/csrc``;
+2. the build of every kernel from ``src/repro_torch/kernels/csrc``, all
+   ``nvcc`` processes at once, with each one's ptxas register, shared
+   memory and spill lines;
 3. the kernel phase: each kernel against its plain PyTorch version on the
-   card at the main path's shapes, with its time, the plain version's time,
+   card at its main path's shapes (the attention kernels in float32 and in
+   bfloat16, on the same inputs), with its time, the plain version's time,
    one PyTorch library call's time and the least time the card could take;
-4. the main path: a float64 tiled Cholesky of ``random_spd(n, seed=0)``
+4. the Cholesky path: a float64 tiled Cholesky of ``random_spd(n, seed=0)``
    split into ``tile``-wide tiles, built with ``build_cholesky_graph`` and
    run by ``repro_torch.Session(4)`` under the ``hybrid`` and ``history``
    victim policies; the kernel's launches, the residual, the agreement
    with ``torch.linalg.cholesky`` and the bit-identity of the two policies'
    factors are checked; beside each run, the same graph shape without
    task bodies times the session's planning and the runtime's dispatch
-   alone;
-5. one more ``hybrid`` run under ``torch.profiler``: device time by
+   alone; then one more ``hybrid`` run under ``torch.profiler``: device
+   time by kernel and the device's busy share;
+5. the serving path, batch: qwen3-14b at full width and depth in
+   bfloat16, random weights made on the card from seed 0; four 512-token
+   prompts (numpy seed 1) prefilled by ``make_decode_state`` and decoded
+   32 tokens each by ``build_decode_graph`` steps on ``Session(2)``, then
+   again by the plain loop, one prompt at a time; the two token streams
+   must be bit-identical, every logit finite and the attention kernels'
+   launches exact;
+6. the serving path, Poisson: the ``ContinuousBatchingEngine`` with
+   ``max_batch=4`` over ``serve_lm``'s default stream (rate 100/s, 12
+   requests, budgets 2..8) with prompts of 256..1024 tokens; every
+   request's tokens must equal serving it alone (``max_batch=1``);
+7. one more 4-lane decode step under ``torch.profiler``: device time by
    kernel and the device's busy share;
-6. a ``kernels`` summary line, then the device line last.
+8. a ``kernels`` summary line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available.
@@ -47,6 +62,7 @@ sys.path.insert(0, str(ROOT / "src"))
 #: bytes/s, and FLOP/s by operand type — float64 at the FP64 tensor-core
 #: rate, float32 outside the tensor cores, bfloat16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+L2_FLUSH_BYTES = 128 << 20              # more than the H100's 50 MB L2
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
               torch.bfloat16: 989e12}
 #: the kernel phase's tolerances: float64 normwise relative error (the
@@ -56,8 +72,30 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 F64_REL_TOL = 1e-12
 WORKERS = 4
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/tile_matmul.cu"
-KERNEL_REPLACES = "src/repro/kernels/tile_matmul.py:35"
+KERNELS = ("tile_matmul", "flash_attention", "decode_attention")
+CSRC = "src/repro_torch/kernels/csrc"
+#: the Pallas entry each kernel replaces (file:line of its function)
+REPLACES = {"tile_matmul": "src/repro/kernels/tile_matmul.py:35",
+            "flash_attention": "src/repro/kernels/flash_attention.py:76",
+            "decode_attention": "src/repro/kernels/decode_attention.py:59"}
+#: the attention kernels against their plain versions.  Both keep p in
+#: float32 as the Pallas kernels do (the reference's layers.decode_attention
+#: rounds p to the cache's type before p . V, so it is not the yardstick
+#: here); what differs is the order of float32 sums, then one rounding of
+#: each output.  float32: tests/test_kernels.py's kernel tolerance.
+#: bfloat16: two roundings of nearly equal float32 values land at most one
+#: unit in the last place apart, at most 2**-7 |x| < 1e-2 |x|, and atol
+#: covers the float32 sums' ~1e-6 near zero.  On an H100 the bfloat16
+#: errors at these shapes read 2.4e-4 (decode, outputs near 0.07) and
+#: 3.9e-3 (prefill, outputs near 0.5), one such unit each.
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
+#: the serving path: qwen3-14b at full width and depth (serve_lm's arch)
+ARCH = "qwen3-14b"
+SERVE_WORKERS = 2                       # serve_lm's --workers default
+SERVE_DEVICE = "cuda"
+BATCH, PROMPT, TOKENS = 4, 512, 32
+POISSON = dict(rate=100.0, prompt_len=(256, 1024), max_new_tokens=(2, 8))
 
 
 def emit(obj) -> None:
@@ -69,13 +107,28 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def device_ms(fn, reps: int = 100) -> float:
+def device_ms(fn, reps: int = 100, *, cold_l2: bool = False) -> float:
     """Device milliseconds per call of ``fn``, from CUDA events around
     ``reps`` back-to-back calls.  The device is first held by a spin
     kernel so the host enqueues every call before the first one runs:
-    the events then time the device's work, not the host's launch rate."""
+    the events then time the device's work, not the host's launch rate.
+    With ``cold_l2`` each call is timed alone, after a write of more than
+    the 50 MB L2 cache, for inputs the real caller finds cold."""
     fn()
     torch.cuda.synchronize()
+    if cold_l2:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device="cuda")
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda._sleep(200_000_000)
+        for start, end in marks:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        marks[-1][1].synchronize()
+        return sum(s.elapsed_time(e) for s, e in marks) / reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(200_000_000)       # ~0.1 s of spinning at H100 clocks
@@ -105,10 +158,12 @@ def build_phase() -> None:
     from repro_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
-    seconds = cuda_lib.build(["tile_matmul"])
-    ptxas = [ln.strip() for ln in
-             cuda_lib.library_path("tile_matmul").with_suffix(".log")
-             .read_text().splitlines() if "Used" in ln or "spill" in ln]
+    seconds = cuda_lib.build(KERNELS)
+    ptxas = {name: [ln.strip() for ln in
+                    cuda_lib.library_path(name).with_suffix(".log")
+                    .read_text().splitlines()
+                    if "Used" in ln or "spill" in ln or "Compiling" in ln]
+             for name in KERNELS}
     emit({"phase": "build", "seconds": seconds,
           "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
 
@@ -176,6 +231,389 @@ def kernel_case(name, dtype, M, N, K, *, gemm_sub: bool, seed: int):
     return row
 
 
+def _bound(n_bytes: float, flops: float, dtype=torch.bfloat16):
+    """The least time for the work: bytes over the memory rate or
+    operations over the type's peak rate, whichever is larger."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _compare(name: str, kernel, plain, arrays):
+    """Hold ``kernel`` against ``plain`` on the same numpy inputs, in
+    float32 and then in bfloat16.  Returns the bfloat16 inputs and output,
+    and per type the largest error and the largest share of the tolerance
+    that it used (1.0 is the limit)."""
+    errors = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [torch.from_numpy(a).to(device="cuda", dtype=dtype)
+              for a in arrays]
+        expect = plain(*xs).float()
+        got = kernel(*xs)
+        torch.cuda.synchronize()
+        diff = (got.float() - expect).abs()
+        t = ATTN_TOL[dtype]
+        share = (diff / (t["atol"] + t["rtol"] * expect.abs())).max().item()
+        key = str(dtype).split(".")[-1]
+        errors[key] = {"max_abs_err": diff.max().item(), "tol": t,
+                       "tol_share": share}
+        check(share <= 1.0, f"{name} {key}: kernel vs plain version, max abs "
+              f"err {diff.max().item()}, {share:.3g} of the tolerance")
+    return xs, got, errors
+
+
+def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
+    """One decode-attention shape: compare, then time kernel / plain /
+    ``scaled_dot_product_attention`` over the same valid keys, each with
+    the L2 cache flushed first: a decode step finds its layer's K/V cold,
+    behind the 28 GB of weights the step streams."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s) for s in ((B, H, d), (B, S, KV, d),
+                                                (B, S, KV, d))]
+    (q, k, v), got, errors = _compare(
+        name, lambda q, k, v: decode_attention(q, k, v, length, window=window),
+        lambda q, k, v: decode_attention_ref(q, k, v, length, window=window),
+        arrays)
+    if length == 0:
+        check(not got.any(), f"{name}: an empty cache must give zeros")
+    lo = max(0, length - window) if window > 0 else 0
+    n = length - lo                     # the keys this call attends to
+    library_ms = None
+    if n > 0:
+        qs = q[:, :, None]
+        ks, vs = k[:, lo:length].transpose(1, 2), v[:, lo:length].transpose(1, 2)
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True), cold_l2=True)
+    # q read and out written once, each valid K and V row read once
+    bound_ms, bound_by = _bound(2 * (2 * B * H * d + 2 * B * n * KV * d),
+                                4.0 * B * H * n * d)
+    row = {"phase": "kernel", "case": name, "kernel": "decode_attention",
+           "dtype": "bfloat16", "B": B, "H": H, "KV": KV, "S": S, "d": d,
+           "length": length, "window": window,
+           "max_abs_err": errors["bfloat16"]["max_abs_err"], "errors": errors,
+           "ms": device_ms(lambda: decode_attention(q, k, v, length,
+                                                    window=window),
+                           cold_l2=True),
+           "plain_ms": device_ms(lambda: decode_attention_ref(
+               q, k, v, length, window=window), cold_l2=True),
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    emit(row)
+    return row
+
+
+def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128):
+    """One causal prefill-attention shape: compare, then time kernel /
+    plain / ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s) for s in ((B, H, S, d), (B, KV, S, d),
+                                                (B, KV, S, d))]
+    (q, k, v), _, errors = _compare(
+        name, lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                              window=window),
+        lambda q, k, v: flash_attention_ref(q, k, v, causal=True,
+                                            window=window), arrays)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    pairs = int(mask.sum().item())      # the (query, key) pairs computed
+    if window > 0:
+        lib = lambda: F.scaled_dot_product_attention(             # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(             # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+    # q, k, v read and out written once; QK and PV, 2 flops a term each
+    bound_ms, bound_by = _bound(2 * B * S * d * (2 * H + 2 * KV),
+                                4.0 * B * H * d * pairs)
+    row = {"phase": "kernel", "case": name, "kernel": "flash_attention",
+           "dtype": "bfloat16", "B": B, "H": H, "KV": KV, "S": S, "d": d,
+           "causal": True, "window": window,
+           "max_abs_err": errors["bfloat16"]["max_abs_err"], "errors": errors,
+           "ms": device_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                   window=window), reps=20),
+           "plain_ms": device_ms(lambda: flash_attention_ref(
+               q, k, v, causal=True, window=window), reps=20),
+           "library_ms": device_ms(lib, reps=20), "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    emit(row)
+    return row
+
+
+def _device_rows(prof):
+    """(device microseconds, kernel name, count) of every profiled kernel,
+    memory copy and memset, largest first.  Only the device's own events
+    count: a host op recorded on the profiling thread carries its kernels'
+    device time too, and would count it twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def serving_model():
+    """qwen3-14b at full width and depth, bfloat16, drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    # a decode step reads every weight once, and one row of the embedding
+    read = sum(p.numel() * p.element_size() for n, p in
+               model.named_parameters() if n != "embed.table")
+    read += cfg.d_model * model.embed.table.element_size()
+    emit({"phase": "serving_model", "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": n_params, "weight_bytes_read_per_lane_step": read,
+          "weight_floor_ms_per_lane_step": read / HBM_BYTES_PER_S * 1e3,
+          "init_s": time.perf_counter() - t0,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return cfg, model, read
+
+
+def serving_batch_phase(cfg, model, weight_bytes, smi):
+    """The fixed batch through the decode-step graphs, then through the
+    plain loop; returns (the graph run's row, its decode state)."""
+    from repro_torch import Session
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import (build_decode_graph, decode_step,
+                                    greedy_sample, make_decode_state,
+                                    prefill)
+
+    nl = cfg.n_layers
+    max_len = PROMPT + TOKENS + 1
+    steps = TOKENS - 1
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32),
+        device=SERVE_DEVICE)
+
+    def dec(p, c, t):
+        return decode_step(p, cfg, c, t)
+
+    with Session(SERVE_WORKERS) as session:
+        # warm-up outside the counted run: cuBLAS handles on every thread
+        warm = make_decode_state(model, cfg, {"tokens": prompts[:, :16]},
+                                 n_shards=BATCH, max_len=20,
+                                 device=SERVE_DEVICE)
+        session.run(build_decode_graph(warm, dec))
+        del warm
+        torch.cuda.synchronize()
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = make_decode_state(model, cfg, {"tokens": prompts},
+                                  n_shards=BATCH, max_len=max_len,
+                                  device=SERVE_DEVICE)
+        prefill_enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        prefill_wall_s = time.perf_counter() - t0
+        prefill_launches = launch_counts()
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            session.run(build_decode_graph(state, dec))
+        decode_enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        decode_wall_s = time.perf_counter() - t0
+        decode_launches = launch_counts()
+    graph_tokens = state.tokens()
+    graph_finite = all(bool(torch.isfinite(sh.logits).all())
+                       for sh in state.shards)
+
+    # the plain loop at the same per-shard batch (B = 1), in the graph's
+    # order: every prompt's prefill, then each step over the lanes; every
+    # logit of it is checked finite (one flag on the device)
+    reset_launch_counts()
+    finite = torch.ones((), dtype=torch.bool, device=SERVE_DEVICE)
+    t0 = time.perf_counter()
+    lanes = []
+    for b in range(BATCH):
+        cache, logits = prefill(model, cfg, {"tokens": prompts[b:b + 1]},
+                                max_len=max_len)
+        finite &= torch.isfinite(logits).all()
+        lanes.append([cache, [greedy_sample(logits)]])
+    torch.cuda.synchronize()
+    loop_prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        for lane in lanes:
+            lane[0], logits = decode_step(model, cfg, lane[0], lane[1][-1])
+            finite &= torch.isfinite(logits).all()
+            lane[1].append(greedy_sample(logits))
+    loop_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    loop_decode_s = time.perf_counter() - t0
+    loop_launches = launch_counts()
+    loop_tokens = torch.cat([torch.cat(toks, dim=1) for _, toks in lanes])
+    del lanes
+
+    lane_steps = BATCH * steps
+    row = {"phase": "serving_batch", "arch": cfg.name, "layers": nl,
+           "dtype": cfg.dtype, "batch": BATCH, "prompt": PROMPT,
+           "tokens": TOKENS, "max_len": max_len, "n_shards": BATCH,
+           "workers": SERVE_WORKERS,
+           "prefill_enqueue_s": prefill_enqueue_s,
+           "prefill_wall_s": prefill_wall_s,
+           "prefill_tok_s": BATCH * PROMPT / prefill_wall_s,
+           "decode_steps": steps, "decode_enqueue_s": decode_enqueue_s,
+           "decode_wall_s": decode_wall_s,
+           "decode_tok_s": lane_steps / decode_wall_s,
+           "step_ms": decode_wall_s / steps * 1e3,
+           "lane_step_ms": decode_wall_s / lane_steps * 1e3,
+           "weight_floor_ms_per_lane_step":
+               weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "plain_prefill_wall_s": loop_prefill_s,
+           "plain_decode_enqueue_s": loop_enqueue_s,
+           "plain_decode_wall_s": loop_decode_s,
+           "plain_lane_step_ms": loop_decode_s / lane_steps * 1e3,
+           "flash_attention_launches": prefill_launches["flash_attention"],
+           "decode_attention_launches": decode_launches["decode_attention"],
+           "plain_loop_launches": loop_launches,
+           "tokens_bit_identical": bool(torch.equal(graph_tokens,
+                                                    loop_tokens)),
+           "sample_tokens": graph_tokens[0, :8].tolist(), "card": smi}
+    emit(row)
+    check(prefill_launches == {"tile_matmul": 0, "flash_attention": nl * BATCH,
+                               "decode_attention": 0},
+          f"prefill launched {prefill_launches}, expected "
+          f"{nl * BATCH} flash_attention")
+    check(decode_launches == {"tile_matmul": 0, "flash_attention": 0,
+                              "decode_attention": nl * lane_steps},
+          f"decode launched {decode_launches}, expected "
+          f"{nl * lane_steps} decode_attention")
+    check(loop_launches == {"tile_matmul": 0, "flash_attention": nl * BATCH,
+                            "decode_attention": nl * lane_steps},
+          f"the plain loop launched {loop_launches}")
+    check(graph_tokens.shape == (BATCH, TOKENS),
+          f"graph tokens have shape {tuple(graph_tokens.shape)}")
+    check(row["tokens_bit_identical"],
+          "the graph's and the plain loop's tokens differ")
+    check(graph_finite and bool(finite), "a logit is not finite")
+    return row, state
+
+
+def serving_poisson_phase(cfg, model, n_requests: int, smi):
+    """The continuous-batching engine over a seeded Poisson stream, then
+    every request served alone; returns the batched run's row."""
+    from repro_torch import Session
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import ContinuousBatchingEngine, PoissonWorkload
+
+    nl = cfg.n_layers
+    workload = PoissonWorkload(POISSON["rate"], n_requests, seed=0,
+                               prompt_len=POISSON["prompt_len"],
+                               max_new_tokens=POISSON["max_new_tokens"],
+                               vocab_size=cfg.vocab_size)
+    max_len = POISSON["prompt_len"][1] + POISSON["max_new_tokens"][1] + 1
+
+    def run(max_batch: int):
+        with Session(SERVE_WORKERS) as session:
+            engine = ContinuousBatchingEngine(
+                session, lambda cache, tok: decode_step(model, cfg, cache, tok),
+                lambda prompt: prefill(model, cfg, {"tokens": prompt},
+                                       max_len=max_len),
+                max_batch=max_batch)
+            engine.prime()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            report = engine.run(workload.requests())
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = launch_counts()
+        check(report.completed == n_requests,
+              f"max_batch={max_batch}: {report.completed} of {n_requests} "
+              "requests completed")
+        check(launches == {"tile_matmul": 0, "flash_attention": nl * n_requests,
+                           "decode_attention": nl * report.lane_steps},
+              f"max_batch={max_batch}: launched {launches}, expected "
+              f"{nl * n_requests} flash / {nl * report.lane_steps} decode")
+        row = {"phase": "serving_poisson", "max_batch": max_batch,
+               "workload": workload.describe(), "max_len": max_len,
+               "wall_s": wall_s, "lane_steps": report.lane_steps,
+               "steps_by_lane_count": {str(k): v for k, v in
+                                       sorted(report.shape_counts.items())},
+               "launches": launches, **report.summary(), "card": smi}
+        return report, row
+
+    batched, row = run(4)
+    alone, alone_row = run(1)
+    row["identical_to_alone"] = (batched.tokens_by_rid()
+                                 == alone.tokens_by_rid())
+    emit(row)
+    emit(alone_row)
+    check(row["identical_to_alone"],
+          "continuous batching's token streams differ from serving each "
+          "request alone")
+    return row
+
+
+def serving_profile_phase(cfg, state, weight_bytes, smi) -> None:
+    """One more 4-lane decode step of the batch path under
+    ``torch.profiler``: device time by kernel, kernels per lane-step, the
+    device's busy share and the distance from the weight-read floor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import Session
+    from repro_torch.models import build_decode_graph, decode_step
+
+    with Session(SERVE_WORKERS) as session:
+        graph = build_decode_graph(
+            state, lambda p, c, t: decode_step(p, cfg, c, t))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            session.run(graph)
+            enqueue_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    device_s = sum(r[0] for r in rows) / 1e6
+    kernels = sum(r[2] for r in rows)
+    check(kernels > 0, "the profiled decode step shows no device work")
+    floor_s = state.n_shards * weight_bytes / HBM_BYTES_PER_S
+    emit({"phase": "serving_profile", "lanes": state.n_shards,
+          "wall_s": wall_s, "enqueue_s": enqueue_s,
+          "device_busy_s": device_s, "device_busy_share": device_s / wall_s,
+          "device_kernels": kernels,
+          "kernels_per_lane_step": kernels / state.n_shards,
+          "host_us_per_kernel": enqueue_s / max(kernels, 1) * 1e6,
+          "weight_floor_s": floor_s, "wall_over_floor": wall_s / floor_s,
+          "device_over_floor": device_s / floor_s,
+          "top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
+                  for us, k, c in rows[:12]], "card": smi})
+
+
 def factor(session, a, tile: int):
     """One main-path run: returns (L, report, enqueue seconds, synchronised
     wall seconds, launches, task count)."""
@@ -233,15 +671,9 @@ def profile_phase(a, warm, tile: int, smi: str) -> None:
             enqueue_s = time.perf_counter() - t0
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     device_s = sum(r[0] for r in rows) / 1e6
+    check(bool(rows), "the profiled factorization shows no device work")
     emit({"phase": "profile", "policy": "hybrid", "n": n, "tile": tile,
           "tasks": len(graph), "wall_s": wall_s, "enqueue_s": enqueue_s,
           "device_busy_s": device_s,
@@ -301,6 +733,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=7680,
                     help="matrix order (paper sizes: 7680, 12288, 18432)")
     ap.add_argument("--tile", type=int, default=192, help="tile width b")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="Poisson serving phase: stream length")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -321,20 +755,43 @@ def main() -> int:
             kernel_case(f"tile_matmul {str(dtype).split('.')[-1]} "
                         f"{M}x{K}x{N}", dtype, M, N, K, gemm_sub=False,
                         seed=2)
+    max_len = PROMPT + TOKENS + 1
+    decode_main = decode_case(f"decode S={max_len} length={max_len}",
+                              max_len, max_len, 0, seed=3)
+    decode_case("decode S=4096 length=4000", 4096, 4000, 0, seed=4)
+    decode_case("decode S=1033 length=1000 window=64", 1033, 1000, 64,
+                seed=5)
+    decode_case(f"decode S={max_len} length=0", max_len, 0, 0, seed=6)
+    flash_main = flash_case(f"prefill S={PROMPT} causal", PROMPT, 0, seed=7)
+    flash_case("prefill S=500 causal (ragged)", 500, 0, seed=8)
+    flash_case(f"prefill S={PROMPT} causal window=64", PROMPT, 64, seed=9)
+
     check(args.n % t == 0, f"n={args.n} is not a multiple of tile={t}")
     a = random_spd(args.n, seed=0, device="cuda")
     warm = random_spd(4 * t, seed=1, device="cuda")
     runs = main_path_phase(a, warm, t, smi)
     profile_phase(a, warm, t, smi)
-    emit({"kernels": [{
-        "name": "tile_matmul", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": runs["hybrid"]["tile_matmul_launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "max_rel_err": main_case["max_rel_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    del a, warm
+
+    cfg, model, weight_bytes = serving_model()
+    batch_row, state = serving_batch_phase(cfg, model, weight_bytes, smi)
+    serving_poisson_phase(cfg, model, args.requests, smi)
+    serving_profile_phase(cfg, state, weight_bytes, smi)
+
+    def line(name, case, launches):
+        return {"name": name, "route": "cuda",
+                "source": f"{CSRC}/{name}.cu", "replaces": REPLACES[name],
+                "launches": launches, "max_abs_err": case["max_abs_err"],
+                "ms": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]}
+
+    emit({"kernels": [
+        line("tile_matmul", main_case, runs["hybrid"]["tile_matmul_launches"]),
+        line("flash_attention", flash_main,
+             batch_row["flash_attention_launches"]),
+        line("decode_attention", decode_main,
+             batch_row["decode_attention_launches"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

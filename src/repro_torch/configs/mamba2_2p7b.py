@@ -1,0 +1,18 @@
+"""mamba2-2.7b [ssm] — SSD (state-space duality), attention-free
+[arXiv:2405.21060; unverified]."""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    n_layers=64,
+    d_model=2560,
+    d_ff=0,                # attention-free, no MLP
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_chunk=128,
+    tie_embeddings=True,
+)

@@ -2,10 +2,15 @@
 their launch counts.
 
 * :mod:`~repro_torch.kernels.ops` — public entry points
-  (``ops.tile_matmul``), dispatched by the device of the tensors;
+  (``ops.tile_matmul``, ``ops.flash_attention``, ``ops.decode_attention``),
+  dispatched by the device of the tensors;
 * :mod:`~repro_torch.kernels.tile_matmul` — the wrapper of the tile GEMM
   with epilogue that carries the factorizations' trailing update
   (``csrc/tile_matmul.cu``);
+* :mod:`~repro_torch.kernels.flash_attention` — prefill attention
+  (``csrc/flash_attention.cu``);
+* :mod:`~repro_torch.kernels.decode_attention` — the attention of a decode
+  step over the KV cache (``csrc/decode_attention.cu``);
 * :mod:`~repro_torch.kernels.ref` — the plain versions;
 * :func:`launch_counts` / :func:`reset_launch_counts` — every kernel's
   launch count, for showing that a run went through the kernels.
@@ -14,10 +19,14 @@ their launch counts.
 from typing import Dict
 
 from . import ops, ref
+from .decode_attention import launches as _decode_attention_launches
+from .flash_attention import launches as _flash_attention_launches
 from .tile_matmul import launches as _tile_matmul_launches
 
 #: every kernel's launch counter, by kernel name
-COUNTERS = {c.name: c for c in (_tile_matmul_launches,)}
+COUNTERS = {c.name: c for c in (_tile_matmul_launches,
+                                _flash_attention_launches,
+                                _decode_attention_launches)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,118 @@
+"""Wrapper of the hand-written Hopper flash-attention kernel
+(``csrc/flash_attention.cu``), the attention of prefill.
+
+``flash_attention(q, k, v, causal=, window=)`` takes q ``(B, H, S, d)`` and
+k/v ``(B, KV, S, d)`` — query head ``h`` reads KV head ``h // (H // KV)``
+in place — and returns ``(B, H, S, d)`` in q's dtype, at scale
+``1/sqrt(d)``, for any ``S``.  Dispatch follows the tensors' device: on
+CUDA tensors it launches the kernel on the current stream (and raises if
+the kernel cannot be built or launched); on CPU tensors it runs the plain
+version, :func:`~repro_torch.kernels.ref.flash_attention_ref`.  There is no
+mode switch and no fallback between the two.
+
+Only what prefill calls is taken: the query and key lengths are equal and
+the queries start at position 0.  ``layers._chunked_attn``'s ``q_offset``
+and ``Sq != Sk`` (a prefill that continues a cache) raise
+``NotImplementedError`` (ROADMAP Queue B item 3).
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention`` and the body of ``repro/models/layers.py::_chunked_attn``
+as ``attention`` calls it for prefill.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import numbers
+
+import torch
+
+from . import cuda_lib
+from .ref import flash_attention_ref
+
+__all__ = ["MAX_HEAD_DIM", "flash_attention", "launches"]
+
+#: launches of the CUDA kernel (CPU calls do not count)
+launches = cuda_lib.LaunchCounter("flash_attention")
+
+#: float32 Q, K and V tiles of 64 rows must fit the 227 KB of shared memory
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = cuda_lib.load("flash_attention").flash_attention_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v, window, q_offset):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention takes q (B, H, S, d) and k/v "
+                         f"(B, KV, S, d), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if q_offset != 0 or Sk != S:
+        raise NotImplementedError(
+            f"flash_attention takes prefill only (q_offset 0, equal query "
+            f"and key lengths), got q_offset={q_offset}, Sq={S}, Sk={Sk}; "
+            f"see ROADMAP Queue B item 3")
+    if tuple(k.shape) != (B, KV, S, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k/v must be (B, KV, S, d) = ({B}, KV, {S}, {d}) "
+                         f"alike, got {tuple(k.shape)} and {tuple(v.shape)}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if S < 1:
+        raise ValueError("flash_attention needs at least one position")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    if not isinstance(window, numbers.Integral):
+        raise TypeError(f"window must be an integer, got {window!r}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype} but q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device} but q is on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous")
+    return B, H, KV, S, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention of q ``(B, H, S, d)`` over k/v ``(B, KV, S, d)``;
+    returns a new contiguous ``(B, H, S, d)`` tensor."""
+    B, H, KV, S, d = _check(q, k, v, window, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=int(window))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors are on {q.device} but the current device "
+                         f"is cuda:{torch.cuda.current_device()}")
+    fn = _launcher()
+    out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), B, H, KV, S, d, int(bool(causal)), int(window),
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *out.stride()[:3], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
+                           f"error {err} (B={B}, H={H}, KV={KV}, S={S}, "
+                           f"d={d}, {q.dtype})")
+    launches.add()
+    return out

@@ -7,11 +7,12 @@ On a CUDA tensor the main path never reaches them.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-__all__ = ["tile_matmul_ref"]
+__all__ = ["decode_attention_ref", "flash_attention_ref", "tile_matmul_ref"]
 
 
 def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor,
@@ -28,3 +29,59 @@ def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor,
     if c is not None:
         out = out + beta * c.to(acc)
     return out.to(a.dtype)
+
+
+def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """``softmax(s) @ v`` over the unmasked keys, in float32.  A row with
+    no unmasked key gives zeros (the Pallas kernels' finite ``NEG_INF`` and
+    ``max(l, 1e-30)`` divide), not the NaN of a softmax over ``-inf``."""
+    s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)                       # masked: exp(-inf) = 0
+    l = p.sum(dim=-1, keepdim=True)
+    return (p @ v.float()) / l.clamp_min(1e-30)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Prefill attention: q ``(B, H, S, d)``; k/v ``(B, KV, S, d)`` with
+    query head ``h`` reading KV head ``h // (H // KV)``; returns
+    ``(B, H, S, d)`` in q's dtype.  Scores, softmax and the ``p @ v``
+    product are float32, at scale ``1/sqrt(d)``; ``causal`` keeps keys at
+    or before the query, ``window > 0`` keeps keys less than ``window``
+    positions behind it."""
+    B, H, S, d = q.shape
+    rep = H // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    return _masked_softmax_pv(s, mask, v).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: int, *, window: int = 0) -> torch.Tensor:
+    """One query token per ``(b, h)`` against a KV cache: q ``(B, H, d)``;
+    k/v ``(B, S, KV, d)`` with query head ``h`` reading KV head
+    ``h // (H // KV)``; positions ``< length`` are valid and, with
+    ``window > 0``, only those ``> length - 1 - window``.  Returns
+    ``(B, H, d)`` in v's dtype; ``length = 0`` gives zeros."""
+    B, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qh = q.float().reshape(B, KV, rep, d)
+    s = torch.einsum("bgrd,bsgd->bgrs", qh, k.float()) / math.sqrt(d)
+    pos = torch.arange(S, device=q.device)
+    mask = pos < length
+    if window > 0:
+        mask &= pos > length - 1 - window
+    out = _masked_softmax_pv(s, mask, v.permute(0, 2, 1, 3))
+    return out.reshape(B, H, d).to(v.dtype)

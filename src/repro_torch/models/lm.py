@@ -1,0 +1,306 @@
+"""The dense LM: parameters, KV caches, prefill and one decode step.
+
+The port of the reference's ``repro/models/lm.py`` for the ``dense``
+family.  The reference stacks its blocks along a leading ``layers`` axis
+and drives them with ``lax.scan``; here :class:`LM` holds one
+:class:`~repro_torch.models.layers.Block` per layer in an
+``nn.ModuleList`` and a Python loop drives them.  Per-layer window and rope
+theta come from :func:`layer_flags`, so gemma3-style local/global stacks
+run too.
+
+Entry points:
+
+* ``init_params(cfg, seed, device=None)``      -> :class:`LM`
+* ``params_from_reference(cfg, tree, device)`` -> :class:`LM`
+* ``zeros_cache(cfg, batch, max_len, device=None)`` -> decode cache
+* ``prefill(params, cfg, batch, ctx=None, max_len=0)`` -> (cache, logits)
+* ``decode_step(params, cfg, cache, tokens, ctx=None)`` -> (cache, logits)
+
+Every entry point that makes tensors defaults to the CUDA device and raises
+when there is none; pass ``device="cpu"`` to run on the host.
+
+The other families (moe, ssm, hybrid, encdec, vlm) raise
+``NotImplementedError`` naming the ROADMAP item that ports them; so do the
+training entry points (``forward``, ``loss_fn``), which are not here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..linalg.tiles import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+__all__ = ["LM", "cache_struct", "decode_step", "init_params",
+           "layer_flags", "logits_from_hidden", "model_spec", "padded_vocab",
+           "params_from_reference", "prefill", "zeros_cache"]
+
+Device = Union[str, torch.device, None]
+
+#: the ROADMAP item that ports each family the port does not run yet
+_FAMILY_NOT_PORTED = {
+    "moe": "ROADMAP Queue A item 9a (MoE: layers.moe)",
+    "encdec": "ROADMAP Queue A item 9b (enc-dec and VLM: cross-attention, "
+              "lm._encode)",
+    "vlm": "ROADMAP Queue A item 9b (enc-dec and VLM: cross-attention, "
+           "lm._encode)",
+    "ssm": "ROADMAP Queue A item 9c (SSM and hybrid: models/ssm.py, "
+           "kernels/ssd_scan.py)",
+    "hybrid": "ROADMAP Queue A item 9c (SSM and hybrid: models/ssm.py, "
+              "kernels/ssd_scan.py)",
+}
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
+            f"yet; see {_FAMILY_NOT_PORTED[cfg.family]}")
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab rounded up to a multiple of 256, as the reference pads it (the
+    padded columns are real, random unembedding columns: greedy sampling
+    over them can draw an id >= ``vocab_size``, as in the reference)."""
+    return -(-cfg.vocab_size // 256) * 256
+
+
+def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """Parameter shapes by reference path (``blocks`` without the layer
+    axis): the layout :func:`params_from_reference` reads."""
+    _require_dense(cfg)
+    v, d = padded_vocab(cfg), cfg.d_model
+    spec: Dict[str, Any] = {
+        "embed": {"table": (v, d)},
+        "final_norm": (d,),
+        "blocks": {"ln1": (d,), "attn": L.attn_spec(cfg), "ln2": (d,),
+                   "mlp": L.mlp_spec(cfg)},
+    }
+    if not cfg.tie_embeddings:
+        spec["unembed"] = {"out": (d, v)}
+    return spec
+
+
+def layer_flags(cfg: ModelConfig) -> Dict[str, List]:
+    """Per-layer ``window`` (0 = full) and rope ``theta``: with
+    ``local_global_ratio = r`` every ``(r+1)``-th layer is global (window
+    0, theta 1e6) and the rest local (``cfg.window``, ``cfg.rope_theta``)."""
+    n = cfg.n_layers
+    if cfg.local_global_ratio:
+        r = cfg.local_global_ratio
+        is_global = [i % (r + 1) == r for i in range(n)]
+        return {"window": [0 if g else cfg.window for g in is_global],
+                "theta": [1e6 if g else cfg.rope_theta for g in is_global]}
+    return {"window": [cfg.window] * n, "theta": [cfg.rope_theta] * n}
+
+
+class _Embed(nn.Module):
+    def __init__(self, v: int, d: int, dtype, device):
+        super().__init__()
+        self.table = L._param((v, d), dtype, device)
+
+
+class _Unembed(nn.Module):
+    def __init__(self, d: int, v: int, dtype, device):
+        super().__init__()
+        self.out = L._param((d, v), dtype, device)
+
+
+class LM(nn.Module):
+    """The dense decoder: ``embed.table``, ``blocks`` (an ``nn.ModuleList``
+    of :class:`~repro_torch.models.layers.Block`), ``final_norm`` and, when
+    embeddings are not tied, ``unembed.out``.  Parameters are made empty on
+    ``device`` in ``cfg``'s dtype and filled by :func:`init_params` or
+    :func:`params_from_reference`."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        _require_dense(cfg)
+        self.cfg = cfg
+        dt = cfg.torch_dtype
+        v, d = padded_vocab(cfg), cfg.d_model
+        self.embed = _Embed(v, d, dt, device)
+        self.blocks = nn.ModuleList(
+            L.Block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
+        self.final_norm = L._param((d,), dt, device)
+        if not cfg.tie_embeddings:
+            self.unembed = _Unembed(d, v, dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Device = None) -> LM:
+    """A random :class:`LM` on ``device`` (CUDA by default), every leaf
+    drawn on the device from ``torch.Generator(device).manual_seed(seed)``
+    by the reference's truncated-normal fan-in rule
+    (:func:`~repro_torch.models.layers.materialize_`).  The numbers differ
+    from the reference's ``init_params(cfg, PRNGKey(seed))``: to compare
+    the two on the same weights, convert the reference's with
+    :func:`params_from_reference`."""
+    dev = resolve_device(device)
+    model = LM(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    L.materialize_(model, gen)
+    return model
+
+
+@torch.no_grad()
+def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
+                          device: Device = None) -> LM:
+    """The reference package's parameter pytree as an :class:`LM`.
+
+    ``tree`` holds nested dicts of numpy arrays in the reference's layout:
+    ``embed/table``, ``final_norm``, ``unembed/out`` (untied) and
+    ``blocks/...`` with the leading ``layers`` axis stacked; each layer's
+    slice goes to ``blocks[i]`` — the serving counterpart of
+    ``linalg.tiles.from_numpy_tiles``."""
+    model = LM(cfg, resolve_device(device))
+    params = dict(model.named_parameters())
+
+    def put(name: str, x, where: str) -> None:
+        p = params.pop(name)
+        if tuple(x.shape) != tuple(p.shape):
+            raise ValueError(f"{where}: shape {x.shape}, expected "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(x)).to(p.dtype))
+
+    def leaves(spec, node, path):
+        for key, sub in spec.items():
+            if isinstance(sub, dict):
+                yield from leaves(sub, node[key], path + (key,))
+            else:
+                yield path + (key,), np.asarray(node[key])
+
+    for path, x in leaves(model_spec(cfg), tree, ()):
+        where = "/".join(path)
+        if path[0] == "blocks":
+            if x.shape[:1] != (cfg.n_layers,):
+                raise ValueError(f"{where}: {x.shape[:1]} layers stacked, "
+                                 f"expected {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                put(".".join(("blocks", str(i)) + path[1:]), x[i],
+                    f"{where}[{i}]")
+        else:
+            put(".".join(path), x, where)
+    assert not params, f"no reference leaf for {sorted(params)}"
+    return model
+
+
+def logits_from_hidden(params: LM, cfg: ModelConfig,
+                       h: torch.Tensor) -> torch.Tensor:
+    """``h @ unembed.out``, or ``h @ embed.table.T`` with tied embeddings."""
+    wout = (params.unembed.out if not cfg.tie_embeddings
+            else params.embed.table.T)
+    return h @ wout
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
+    """``{"k", "v": (shape, dtype), "index": int}`` of the decode cache:
+    K/V ``(n_layers, batch, max_len, n_kv_heads, head_dim)``, the
+    reference's layout."""
+    _require_dense(cfg)
+    kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+          cfg.torch_dtype)
+    return {"k": kv, "v": kv, "index": int}
+
+
+def zeros_cache(cfg: ModelConfig, batch: int, max_len: int,
+                device: Device = None) -> Dict[str, Any]:
+    """An empty decode cache on ``device`` (CUDA by default).  ``index``,
+    the fill, is a Python int kept on the host (the reference carries an
+    int32 device scalar with the same values), so a decode step passes it
+    to the attention kernel as a launch argument and never synchronises to
+    read it."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for name, spec in cache_struct(cfg, batch, max_len).items():
+        if name == "index":
+            out[name] = 0
+        else:
+            shape, dt = spec
+            out[name] = torch.zeros(shape, dtype=dt, device=dev)
+    return out
+
+
+def _rope_by_theta(cfg: ModelConfig, flags, positions: torch.Tensor):
+    """One ``(cos, sin)`` pair per distinct theta, shared by its layers."""
+    return {th: L.rope_tables(positions, th, cfg.head_dim)
+            for th in dict.fromkeys(flags["theta"])}
+
+
+def _no_ctx(ctx) -> None:
+    if ctx is not None:
+        raise NotImplementedError(
+            "sharding contexts are not ported to repro_torch yet; see "
+            "ROADMAP Queue A item 12 (sharding/)")
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
+            max_len: int = 0):
+    """Run the prompt ``batch["tokens"]`` ``(B, S)`` (a tensor or numpy
+    array of ids) through the model; returns ``(cache, logits)`` with the
+    cache filled to ``S`` of ``max_len`` (default ``S + 1``) positions and
+    the last position's logits ``(B, 1, padded_vocab)``."""
+    _no_ctx(ctx)
+    dev = params.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    B, Sq = tokens.shape
+    max_len = max_len or Sq + 1
+    cache = zeros_cache(cfg, B, max_len, device=dev)
+    x = params.embed.table[tokens]
+    flags = layer_flags(cfg)
+    positions = torch.arange(Sq, device=dev)[None, :]
+    tables = _rope_by_theta(cfg, flags, positions)
+    for i, blk in enumerate(params.blocks):
+        x, kv = blk(x, window=flags["window"][i],
+                    rope_cs=tables[flags["theta"][i]])
+        cache["k"][i, :, :Sq] = kv["k"]
+        cache["v"][i, :, :Sq] = kv["v"]
+    cache["index"] = Sq
+    h = L.rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
+    return cache, logits_from_hidden(params, cfg, h)
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ModelConfig, cache: Dict[str, Any],
+                tokens: torch.Tensor, ctx=None):
+    """One decode step for ``tokens`` ``(B, 1)``; returns ``(cache,
+    logits)`` with logits ``(B, 1, padded_vocab)``.
+
+    Unlike the reference, which returns new arrays, the step writes this
+    token's K/V into ``cache["k"]``/``cache["v"]`` *in place*; the returned
+    cache is a new dict over the same tensors with ``index + 1``."""
+    _no_ctx(ctx)
+    dev = params.device
+    idx = cache["index"]
+    if idx >= cache["k"].shape[2]:
+        raise ValueError(f"the cache is full ({idx} positions)")
+    x = params.embed.table[tokens]
+    flags = layer_flags(cfg)
+    positions = torch.full((1, 1), idx, dtype=torch.int64, device=dev)
+    tables = _rope_by_theta(cfg, flags, positions)
+    ck, cv = cache["k"], cache["v"]
+    for i, blk in enumerate(params.blocks):
+        x, _ = blk(x, window=flags["window"][i],
+                   rope_cs=tables[flags["theta"][i]],
+                   cache={"k": ck[i], "v": cv[i]}, cache_index=idx)
+    new_cache = dict(cache)
+    new_cache["index"] = idx + 1
+    h = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return new_cache, logits_from_hidden(params, cfg, h)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and its main path on the card.
+"""The port's CUDA kernels and its main paths on the card.
 
 Every test here needs an NVIDIA GPU and ``nvcc``; each is marked ``cuda``
 and skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -16,7 +16,10 @@ import torch
 import repro_torch
 from repro_torch.kernels import cuda_lib, launch_counts
 from repro_torch.kernels import tile_matmul as tm
-from repro_torch.kernels.ref import tile_matmul_ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,
+                                     tile_matmul_ref)
 from repro_torch.linalg import (build_cholesky_graph, cholesky_extract,
                                 random_spd, to_tiles)
 
@@ -95,3 +98,129 @@ def test_cholesky_on_card_launches_the_kernel_for_every_update(cuda, nb, b):
     L = cholesky_extract(store)
     ref = torch.linalg.cholesky(a)
     assert ((L - ref).abs().max() / ref.abs().max()).item() <= 1e-10
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape)).to(device, dtype)
+
+
+# the attention kernels keep p in float32 for p . V, as the plain versions
+# and the Pallas kernels do (the reference's layers.decode_attention rounds
+# p to the cache's type first, so bfloat16 is held against the plain
+# versions, not against it): float32 meets tests/test_kernels.py's kernel
+# tolerance.  bfloat16 outputs round once from float32 sums that differ only
+# in order, so the two land at most one unit in the last place apart:
+# 2**-7 |x| < 1e-2 |x|, with atol for the float32 sums' ~1e-6 near zero
+# (chip_smoke.py's ATTN_TOL)
+ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=1e-2, atol=1e-4)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,S,d,length,window", [
+    (1, 40, 8, 545, 128, 545, 0),       # the batch serving path's cache
+    (1, 40, 8, 4096, 128, 4000, 0),
+    (1, 40, 8, 1033, 128, 700, 64),     # sliding window
+    (2, 4, 2, 200, 32, 137, 0),         # the reduced configs' head dim
+    (1, 16, 8, 300, 256, 300, 100),     # gemma3's head dim
+    (1, 40, 8, 545, 128, 0, 0),         # empty cache: zeros
+])
+def test_decode_attention_kernel_matches_plain_version(
+        cuda, dtype, B, H, KV, S, d, length, window):
+    rng = np.random.default_rng(11)
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, H, d), dt, cuda)
+    k = _randn(rng, (B, S, KV, d), dt, cuda)
+    v = _randn(rng, (B, S, KV, d), dt, cuda)
+    expect = decode_attention_ref(q, k, v, length, window=window)
+    before = launch_counts()["decode_attention"]
+    got = decode_attention(q, k, v, length, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == before + 1
+    assert got.shape == (B, H, d) and got.dtype == dt
+    torch.testing.assert_close(got.float(), expect.float(), **ATTN_TOL[dtype])
+    if length == 0:
+        assert not got.any()
+    again = decode_attention(q, k, v, length, window=window)
+    assert torch.equal(got, again)              # no atomics: same bits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,S,d,causal,window", [
+    (1, 40, 8, 512, 128, True, 0),      # the batch serving path's prompt
+    (1, 40, 8, 500, 128, True, 0),      # ragged edge
+    (1, 40, 8, 512, 128, True, 64),     # sliding window
+    (2, 4, 2, 200, 32, True, 0),
+    (1, 4, 4, 130, 64, False, 0),
+    (1, 16, 8, 257, 256, True, 100),
+])
+def test_flash_attention_kernel_matches_plain_version(
+        cuda, dtype, B, H, KV, S, d, causal, window):
+    rng = np.random.default_rng(12)
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, H, S, d), dt, cuda)
+    k = _randn(rng, (B, KV, S, d), dt, cuda)
+    v = _randn(rng, (B, KV, S, d), dt, cuda)
+    expect = flash_attention_ref(q, k, v, causal=causal, window=window)
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.shape == (B, H, S, d) and got.dtype == dt
+    torch.testing.assert_close(got.float(), expect.float(), **ATTN_TOL[dtype])
+    # strided views of (B, S, heads, d) projections, as prefill passes them
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    vt = v.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(flash_attention(qt, kt, vt, causal=causal,
+                                       window=window), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
+    """qwen3-14b's reduced config cut to 2 layers, made on the card: the
+    decode-step graphs on ``Session(2)`` give the plain loop's tokens bit
+    for bit, and each attention kernel launches once per layer per prefill
+    or lane-step, never on the other path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import (build_decode_graph, decode_step,
+                                    greedy_sample, init_params,
+                                    make_decode_state, prefill)
+
+    cfg = get_config("qwen3-14b").reduced(n_layers=2, dtype=dtype)
+    model = init_params(cfg, seed=0)
+    assert model.device.type == "cuda"                # the default device
+    lanes, prompt, steps = 3, 70, 6
+    max_len = prompt + steps + 1
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (lanes, prompt), dtype=np.int32)
+
+    reset_launch_counts()
+    state = make_decode_state(model, cfg, {"tokens": prompts}, n_shards=lanes,
+                              max_len=max_len)
+    assert launch_counts() == {"tile_matmul": 0, "flash_attention": 2 * lanes,
+                               "decode_attention": 0}
+    reset_launch_counts()
+    with repro_torch.Session(2) as s:
+        for _ in range(steps - 1):
+            s.run(build_decode_graph(
+                state, lambda p, c, t: decode_step(p, cfg, c, t)))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"tile_matmul": 0, "flash_attention": 0,
+                               "decode_attention": 2 * lanes * (steps - 1)}
+    assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
+
+    loop = []
+    for b in range(lanes):
+        cache, logits = prefill(model, cfg, {"tokens": prompts[b:b + 1]},
+                                max_len=max_len)
+        tok = greedy_sample(logits)
+        toks = [tok]
+        for _ in range(steps - 1):
+            cache, logits = decode_step(model, cfg, cache, tok)
+            tok = greedy_sample(logits)
+            toks.append(tok)
+        loop.append(torch.cat(toks, 1))
+    assert state.tokens().shape == (lanes, steps)
+    assert torch.equal(state.tokens(), torch.cat(loop, 0))
