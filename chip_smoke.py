@@ -11,9 +11,12 @@ Phases, each printed as one JSON line:
    ``nvcc`` processes at once, with each one's ptxas register, shared
    memory and spill lines;
 3. the kernel phase: each kernel against its plain PyTorch version on the
-   card at its main path's shapes (the attention kernels in float32 and in
-   bfloat16, on the same inputs), with its time, the plain version's time,
-   one PyTorch library call's time and the least time the card could take;
+   card at its main paths' shapes (the attention kernels in float32 and in
+   bfloat16, on the same inputs, at qwen3-14b's and at zamba2-7b's head
+   dims; the SSD scan at zamba2-7b's and mamba2-2.7b's prefill, ragged,
+   batched and short, with inputs made as an SSM layer makes them), with
+   its time, the plain version's time, one PyTorch library call's time
+   where there is one and the least time the card could take;
 4. the Cholesky path: a float64 tiled Cholesky of ``random_spd(n, seed=0)``
    split into ``tile``-wide tiles, built with ``build_cholesky_graph`` and
    run by ``repro_torch.Session(4)`` under the ``hybrid`` and ``history``
@@ -23,19 +26,24 @@ Phases, each printed as one JSON line:
    task bodies times the session's planning and the runtime's dispatch
    alone; then one more ``hybrid`` run under ``torch.profiler``: device
    time by kernel and the device's busy share;
-5. the serving path, batch: qwen3-14b at full width and depth in
-   bfloat16, random weights made on the card from seed 0; four 512-token
-   prompts (numpy seed 1) prefilled by ``make_decode_state`` and decoded
-   32 tokens each by ``build_decode_graph`` steps on ``Session(2)``, then
-   again by the plain loop, one prompt at a time; the two token streams
-   must be bit-identical, every logit finite and the attention kernels'
-   launches exact;
-6. the serving path, Poisson: the ``ContinuousBatchingEngine`` with
-   ``max_batch=4`` over ``serve_lm``'s default stream (rate 100/s, 12
-   requests, budgets 2..8) with prompts of 256..1024 tokens; every
+5. the serving paths, each model at full width and depth in bfloat16,
+   random weights made on the card from seed 0, and freed before the
+   next: qwen3-14b (dense), zamba2-7b (hybrid: Mamba2 layers and a shared
+   attention block) and mamba2-2.7b (ssm).  For each, batch: four
+   512-token prompts (numpy seed 1) prefilled by ``make_decode_state``
+   and decoded 32 tokens each by ``build_decode_graph`` steps on
+   ``Session(2)``, then again by the plain loop, one prompt at a time;
+   the two token streams must be bit-identical, every logit finite and
+   the kernels' launches exact (every SSM layer's prefill launches the
+   SSD scan; every attention layer, or use of the shared block, launches
+   flash attention per prompt and decode attention per lane-step);
+6. qwen3-14b and zamba2-7b, Poisson: the ``ContinuousBatchingEngine``
+   with ``max_batch=4`` over ``serve_lm``'s default stream (rate 100/s,
+   12 requests, budgets 2..8) with prompts of 256..1024 tokens; every
    request's tokens must equal serving it alone (``max_batch=1``);
-7. one more 4-lane decode step under ``torch.profiler``: device time by
-   kernel and the device's busy share;
+7. for each model one more 4-lane decode step under ``torch.profiler``:
+   device time by kernel, kernels per lane-step and the device's busy
+   share;
 8. a ``kernels`` summary line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -45,6 +53,7 @@ non-zero, printing no result, when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -72,12 +81,13 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 F64_REL_TOL = 1e-12
 WORKERS = 4
-KERNELS = ("tile_matmul", "flash_attention", "decode_attention")
+KERNELS = ("tile_matmul", "flash_attention", "decode_attention", "ssd_scan")
 CSRC = "src/repro_torch/kernels/csrc"
 #: the Pallas entry each kernel replaces (file:line of its function)
 REPLACES = {"tile_matmul": "src/repro/kernels/tile_matmul.py:35",
             "flash_attention": "src/repro/kernels/flash_attention.py:76",
-            "decode_attention": "src/repro/kernels/decode_attention.py:59"}
+            "decode_attention": "src/repro/kernels/decode_attention.py:59",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:78"}
 #: the attention kernels against their plain versions.  Both keep p in
 #: float32 as the Pallas kernels do (the reference's layers.decode_attention
 #: rounds p to the cache's type before p . V, so it is not the yardstick
@@ -90,8 +100,18 @@ REPLACES = {"tile_matmul": "src/repro/kernels/tile_matmul.py:35",
 #: 3.9e-3 (prefill, outputs near 0.5), one such unit each.
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
-#: the serving path: qwen3-14b at full width and depth (serve_lm's arch)
-ARCH = "qwen3-14b"
+#: the SSD scan against its plain version: the same float32 products
+#: summed in another order.  float32: tests/test_kernels.py's kernel
+#: tolerance (the other kernels' here); on an H100 the largest error at the
+#: cases below read 1.9e-5 on outputs near 8, 0.022 of the reference's
+#: own SSD limit of 1e-4.  bfloat16 y rounds once from such sums, at most
+#: one unit in the last place apart (as ATTN_TOL; it read 0.75 of that
+#: limit).  The final state is float32 in both.
+SSD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+           torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
+#: the serving paths: (arch, whether it also serves the Poisson stream)
+SERVE_ARCHS = (("qwen3-14b", True), ("zamba2-7b", True),
+               ("mamba2-2.7b", False))
 SERVE_WORKERS = 2                       # serve_lm's --workers default
 SERVE_DEVICE = "cuda"
 BATCH, PROMPT, TOKENS = 4, 512, 32
@@ -352,6 +372,89 @@ def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128):
     return row
 
 
+def ssd_inputs(B, T, H, N, P, chunk, seed):
+    """The SSD scan's float32 inputs made as an SSM layer makes them:
+    silu'd x, B and C, step sizes softplus(N(0, 0.8)), about 0.75, and
+    a = -1 (the seed-0 model's a_log = 0), so cs falls to about -95 across
+    a 128-step chunk and exp(cs_i - cs_j) above the diagonal is inf in
+    float32; laid out and padded by the model's ``ssd_scan_inputs``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.ssm import ssd_scan_inputs
+
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, scale=1.0):
+        x = (scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(x).to("cuda")
+
+    xs = F.silu(rand((B, T, H, P)))
+    dt = F.softplus(rand((B, T, H), 0.8))
+    Bm, Cm = F.silu(rand((B, T, N))), F.silu(rand((B, T, N)))
+    a = -torch.ones(H, device="cuda")
+    return ssd_scan_inputs(xs, dt, a, Bm, Cm, chunk=chunk)
+
+
+def ssd_case(name, B, T, H, N, P, *, seed, chunk=128,
+             dtypes=(torch.float32,)):
+    """One SSD-scan shape: in each type, compare y and the final state
+    with the plain version, check that a second launch gives the same
+    bits, and time kernel and plain version.  No single PyTorch call
+    computes the chunked scan, so there is no library time."""
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    xdt32, cs, bm32, cm32 = ssd_inputs(B, T, H, N, P, chunk, seed)
+    _, nc, L, _, _ = xdt32.shape
+    errors = {}
+    for dtype in dtypes:
+        xdt, bm, cm = (t.to(dtype) for t in (xdt32, bm32, cm32))
+        ey, es = ssd_scan_ref(xdt, cs, bm, cm)
+        y, st = ssd_scan(xdt, cs, bm, cm)
+        y2, st2 = ssd_scan(xdt, cs, bm, cm)
+        torch.cuda.synchronize()
+        key = str(dtype).split(".")[-1]
+        check(bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all()),
+              f"{name} {key}: the kernel's output is not finite")
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"{name} {key}: two launches on the same inputs differ")
+        shares = {}
+        for what, got, want, t in (("y", y, ey, SSD_TOL[dtype]),
+                                   ("state", st, es, SSD_TOL[torch.float32])):
+            diff = (got.float() - want.float()).abs()
+            share = (diff / (t["atol"] + t["rtol"] * want.float().abs())
+                     ).max().item()
+            shares[what] = {"max_abs_err": diff.max().item(), "tol": t,
+                            "tol_share": share}
+            check(share <= 1.0, f"{name} {key} {what}: kernel vs plain "
+                  f"version, max abs err {diff.max().item()}, {share:.3g} of "
+                  f"the tolerance")
+        errors[key] = {
+            **shares,
+            "ms": device_ms(lambda: ssd_scan(xdt, cs, bm, cm), reps=20),
+            "plain_ms": device_ms(lambda: ssd_scan_ref(xdt, cs, bm, cm),
+                                  reps=5)}
+    first = errors[str(dtypes[0]).split(".")[-1]]
+    item = torch.tensor([], dtype=dtypes[0]).element_size()
+    # xdt read and y written, cs, B and C read, the final state written
+    n_bytes = (2 * B * nc * L * H * P * item + 4 * B * nc * L * H
+               + 2 * B * nc * L * N * item + 4 * B * H * N * P)
+    # per chunk and head: C . s and the state update (2 L N P each), the
+    # lower triangle's W . xdt; per chunk C . B^T over the lower triangle
+    pairs = L * (L + 1) // 2
+    flops = 2.0 * B * nc * (H * (2 * L * N * P + pairs * P) + pairs * N)
+    bound_ms, bound_by = _bound(n_bytes, flops, dtypes[0])
+    row = {"phase": "kernel", "case": name, "kernel": "ssd_scan",
+           "dtype": str(dtypes[0]).split(".")[-1], "B": B, "T": T, "nc": nc,
+           "L": L, "H": H, "N": N, "P": P, "cs_min": cs.min().item(),
+           "max_abs_err": first["y"]["max_abs_err"], "errors": errors,
+           "ms": first["ms"], "plain_ms": first["plain_ms"],
+           "library_ms": None, "bytes": n_bytes, "flops": flops,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    return row
+
+
 def _device_rows(prof):
     """(device microseconds, kernel name, count) of every profiled kernel,
     memory copy and memset, largest first.  Only the device's own events
@@ -372,33 +475,73 @@ def _device_rows(prof):
     return rows
 
 
-def serving_model():
-    """qwen3-14b at full width and depth, bfloat16, drawn on the card."""
+def serving_model(arch: str):
+    """``arch`` at full width and depth in bfloat16, drawn on the card;
+    returns (cfg, model, the bytes a B = 1 decode lane-step must read and
+    write at least)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    from repro_torch.models.lm import layer_flags
+    from repro_torch.models.ssm import ssm_state_spec
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=SERVE_DEVICE)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    # a decode step reads every weight once, and one row of the embedding
-    read = sum(p.numel() * p.element_size() for n, p in
-               model.named_parameters() if n != "embed.table")
-    read += cfg.d_model * model.embed.table.element_size()
+    # a decode lane-step reads every weight once, the shared block once per
+    # layer that runs it (it does not fit the 50 MB L2), and one row of the
+    # embedding table unless the table is also the unembedding
+    uses = sum(layer_flags(cfg).get("use_attn", []))
+    read = 0
+    for name, p in model.named_parameters():
+        size = p.numel() * p.element_size()
+        if name == "embed.table" and not cfg.tie_embeddings:
+            size = cfg.d_model * p.element_size()
+        elif name.startswith("shared."):
+            size *= uses
+        read += size
+    # and reads and writes every layer's SSM and conv states
+    state = 0
+    if cfg.family in ("ssm", "hybrid"):
+        state = cfg.n_layers * sum(
+            math.prod(shape) * torch.tensor([], dtype=dt).element_size()
+            for shape, dt in ssm_state_spec(cfg, 1, cfg.torch_dtype).values())
+    floor_bytes = read + 2 * state
     emit({"phase": "serving_model", "arch": cfg.name, "family": cfg.family,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-          "params": n_params, "weight_bytes_read_per_lane_step": read,
-          "weight_floor_ms_per_lane_step": read / HBM_BYTES_PER_S * 1e3,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
+          "ssm_chunk": cfg.ssm_chunk if cfg.ssm_state else None,
+          "shared_block_uses": uses, "vocab": cfg.vocab_size,
+          "dtype": cfg.dtype, "params": n_params,
+          "weight_bytes_read_per_lane_step": read,
+          "state_bytes_per_lane": state,
+          "floor_ms_per_lane_step": floor_bytes / HBM_BYTES_PER_S * 1e3,
           "init_s": time.perf_counter() - t0,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return cfg, model, read
+    return cfg, model, floor_bytes
 
 
-def serving_batch_phase(cfg, model, weight_bytes, smi):
+def expected_launches(cfg, prefills: int, lane_steps: int):
+    """Each kernel's launches for ``prefills`` prompts and ``lane_steps``
+    decode lane-steps: every attention layer (a hybrid: every use of the
+    shared block) launches flash attention per prompt and decode attention
+    per lane-step; every SSM layer launches the SSD scan per prompt."""
+    from repro_torch.models.lm import layer_flags
+
+    if cfg.family == "dense":
+        attn, ssm = cfg.n_layers, 0
+    else:
+        attn, ssm = sum(layer_flags(cfg).get("use_attn", [])), cfg.n_layers
+    return {"tile_matmul": 0, "flash_attention": attn * prefills,
+            "decode_attention": attn * lane_steps,
+            "ssd_scan": ssm * prefills}
+
+
+def serving_batch_phase(cfg, model, floor_bytes, smi):
     """The fixed batch through the decode-step graphs, then through the
     plain loop; returns (the graph run's row, its decode state)."""
     from repro_torch import Session
@@ -407,7 +550,6 @@ def serving_batch_phase(cfg, model, weight_bytes, smi):
                                     greedy_sample, make_decode_state,
                                     prefill)
 
-    nl = cfg.n_layers
     max_len = PROMPT + TOKENS + 1
     steps = TOKENS - 1
     prompts = torch.as_tensor(np.random.default_rng(1).integers(
@@ -476,7 +618,7 @@ def serving_batch_phase(cfg, model, weight_bytes, smi):
     del lanes
 
     lane_steps = BATCH * steps
-    row = {"phase": "serving_batch", "arch": cfg.name, "layers": nl,
+    row = {"phase": "serving_batch", "arch": cfg.name, "layers": cfg.n_layers,
            "dtype": cfg.dtype, "batch": BATCH, "prompt": PROMPT,
            "tokens": TOKENS, "max_len": max_len, "n_shards": BATCH,
            "workers": SERVE_WORKERS,
@@ -488,30 +630,30 @@ def serving_batch_phase(cfg, model, weight_bytes, smi):
            "decode_tok_s": lane_steps / decode_wall_s,
            "step_ms": decode_wall_s / steps * 1e3,
            "lane_step_ms": decode_wall_s / lane_steps * 1e3,
-           "weight_floor_ms_per_lane_step":
-               weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "floor_ms_per_lane_step": floor_bytes / HBM_BYTES_PER_S * 1e3,
            "plain_prefill_wall_s": loop_prefill_s,
            "plain_decode_enqueue_s": loop_enqueue_s,
            "plain_decode_wall_s": loop_decode_s,
            "plain_lane_step_ms": loop_decode_s / lane_steps * 1e3,
            "flash_attention_launches": prefill_launches["flash_attention"],
            "decode_attention_launches": decode_launches["decode_attention"],
+           "ssd_scan_launches": prefill_launches["ssd_scan"],
            "plain_loop_launches": loop_launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tokens_bit_identical": bool(torch.equal(graph_tokens,
                                                     loop_tokens)),
            "sample_tokens": graph_tokens[0, :8].tolist(), "card": smi}
     emit(row)
-    check(prefill_launches == {"tile_matmul": 0, "flash_attention": nl * BATCH,
-                               "decode_attention": 0},
-          f"prefill launched {prefill_launches}, expected "
-          f"{nl * BATCH} flash_attention")
-    check(decode_launches == {"tile_matmul": 0, "flash_attention": 0,
-                              "decode_attention": nl * lane_steps},
-          f"decode launched {decode_launches}, expected "
-          f"{nl * lane_steps} decode_attention")
-    check(loop_launches == {"tile_matmul": 0, "flash_attention": nl * BATCH,
-                            "decode_attention": nl * lane_steps},
-          f"the plain loop launched {loop_launches}")
+    want = expected_launches(cfg, BATCH, 0)
+    check(prefill_launches == want,
+          f"{cfg.name} prefill launched {prefill_launches}, expected {want}")
+    want = expected_launches(cfg, 0, lane_steps)
+    check(decode_launches == want,
+          f"{cfg.name} decode launched {decode_launches}, expected {want}")
+    want = expected_launches(cfg, BATCH, lane_steps)
+    check(loop_launches == want,
+          f"{cfg.name}: the plain loop launched {loop_launches}, expected "
+          f"{want}")
     check(graph_tokens.shape == (BATCH, TOKENS),
           f"graph tokens have shape {tuple(graph_tokens.shape)}")
     check(row["tokens_bit_identical"],
@@ -528,7 +670,6 @@ def serving_poisson_phase(cfg, model, n_requests: int, smi):
     from repro_torch.models import decode_step, prefill
     from repro_torch.serving import ContinuousBatchingEngine, PoissonWorkload
 
-    nl = cfg.n_layers
     workload = PoissonWorkload(POISSON["rate"], n_requests, seed=0,
                                prompt_len=POISSON["prompt_len"],
                                max_new_tokens=POISSON["max_new_tokens"],
@@ -553,11 +694,12 @@ def serving_poisson_phase(cfg, model, n_requests: int, smi):
         check(report.completed == n_requests,
               f"max_batch={max_batch}: {report.completed} of {n_requests} "
               "requests completed")
-        check(launches == {"tile_matmul": 0, "flash_attention": nl * n_requests,
-                           "decode_attention": nl * report.lane_steps},
-              f"max_batch={max_batch}: launched {launches}, expected "
-              f"{nl * n_requests} flash / {nl * report.lane_steps} decode")
-        row = {"phase": "serving_poisson", "max_batch": max_batch,
+        want = expected_launches(cfg, n_requests, report.lane_steps)
+        check(launches == want,
+              f"{cfg.name} max_batch={max_batch}: launched {launches}, "
+              f"expected {want}")
+        row = {"phase": "serving_poisson", "arch": cfg.name,
+               "max_batch": max_batch,
                "workload": workload.describe(), "max_len": max_len,
                "wall_s": wall_s, "lane_steps": report.lane_steps,
                "steps_by_lane_count": {str(k): v for k, v in
@@ -577,10 +719,10 @@ def serving_poisson_phase(cfg, model, n_requests: int, smi):
     return row
 
 
-def serving_profile_phase(cfg, state, weight_bytes, smi) -> None:
+def serving_profile_phase(cfg, state, floor_bytes, smi) -> None:
     """One more 4-lane decode step of the batch path under
     ``torch.profiler``: device time by kernel, kernels per lane-step, the
-    device's busy share and the distance from the weight-read floor."""
+    device's busy share and the distance from the floor."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import Session
@@ -601,14 +743,15 @@ def serving_profile_phase(cfg, state, weight_bytes, smi) -> None:
     device_s = sum(r[0] for r in rows) / 1e6
     kernels = sum(r[2] for r in rows)
     check(kernels > 0, "the profiled decode step shows no device work")
-    floor_s = state.n_shards * weight_bytes / HBM_BYTES_PER_S
-    emit({"phase": "serving_profile", "lanes": state.n_shards,
+    floor_s = state.n_shards * floor_bytes / HBM_BYTES_PER_S
+    emit({"phase": "serving_profile", "arch": cfg.name,
+          "lanes": state.n_shards,
           "wall_s": wall_s, "enqueue_s": enqueue_s,
           "device_busy_s": device_s, "device_busy_share": device_s / wall_s,
           "device_kernels": kernels,
           "kernels_per_lane_step": kernels / state.n_shards,
           "host_us_per_kernel": enqueue_s / max(kernels, 1) * 1e6,
-          "weight_floor_s": floor_s, "wall_over_floor": wall_s / floor_s,
+          "floor_s": floor_s, "wall_over_floor": wall_s / floor_s,
           "device_over_floor": device_s / floor_s,
           "top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
                   for us, k, c in rows[:12]], "card": smi})
@@ -765,6 +908,18 @@ def main() -> int:
     flash_main = flash_case(f"prefill S={PROMPT} causal", PROMPT, 0, seed=7)
     flash_case("prefill S=500 causal (ragged)", 500, 0, seed=8)
     flash_case(f"prefill S={PROMPT} causal window=64", PROMPT, 64, seed=9)
+    # zamba2-7b's shared attention block: MHA, head dim 112
+    decode_case(f"decode zamba2 d=112 S={max_len} length={max_len}",
+                max_len, max_len, 0, seed=10, H=32, KV=32, d=112)
+    flash_case(f"prefill zamba2 d=112 S={PROMPT} causal", PROMPT, 0,
+               seed=11, H=32, KV=32, d=112)
+    ssd_main = ssd_case(f"ssd zamba2 T={PROMPT}", 1, PROMPT, 112, 64, 64,
+                        seed=12, dtypes=(torch.float32, torch.bfloat16))
+    ssd_case(f"ssd mamba2 T={PROMPT}", 1, PROMPT, 80, 128, 64, seed=13)
+    ssd_case("ssd zamba2 T=300 (ragged)", 1, 300, 112, 64, 64, seed=14)
+    ssd_case(f"ssd zamba2 B=2 T={PROMPT}", 2, PROMPT, 112, 64, 64, seed=15)
+    ssd_case("ssd zamba2 T=100 (one short chunk)", 1, 100, 112, 64, 64,
+             seed=16)
 
     check(args.n % t == 0, f"n={args.n} is not a multiple of tile={t}")
     a = random_spd(args.n, seed=0, device="cuda")
@@ -773,10 +928,17 @@ def main() -> int:
     profile_phase(a, warm, t, smi)
     del a, warm
 
-    cfg, model, weight_bytes = serving_model()
-    batch_row, state = serving_batch_phase(cfg, model, weight_bytes, smi)
-    serving_poisson_phase(cfg, model, args.requests, smi)
-    serving_profile_phase(cfg, state, weight_bytes, smi)
+    batch_rows = {}
+    for arch, poisson in SERVE_ARCHS:
+        cfg, model, floor_bytes = serving_model(arch)
+        batch_rows[arch], state = serving_batch_phase(cfg, model,
+                                                      floor_bytes, smi)
+        if poisson:
+            serving_poisson_phase(cfg, model, args.requests, smi)
+        serving_profile_phase(cfg, state, floor_bytes, smi)
+        del model, state                  # free the card for the next model
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def line(name, case, launches):
         return {"name": name, "route": "cuda",
@@ -789,9 +951,11 @@ def main() -> int:
     emit({"kernels": [
         line("tile_matmul", main_case, runs["hybrid"]["tile_matmul_launches"]),
         line("flash_attention", flash_main,
-             batch_row["flash_attention_launches"]),
+             batch_rows["qwen3-14b"]["flash_attention_launches"]),
         line("decode_attention", decode_main,
-             batch_row["decode_attention_launches"])]})
+             batch_rows["qwen3-14b"]["decode_attention_launches"]),
+        line("ssd_scan", ssd_main,
+             batch_rows["zamba2-7b"]["ssd_scan_launches"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,8 @@
 their launch counts.
 
 * :mod:`~repro_torch.kernels.ops` — public entry points
-  (``ops.tile_matmul``, ``ops.flash_attention``, ``ops.decode_attention``),
+  (``ops.tile_matmul``, ``ops.flash_attention``, ``ops.decode_attention``,
+  ``ops.ssd_scan``),
   dispatched by the device of the tensors;
 * :mod:`~repro_torch.kernels.tile_matmul` — the wrapper of the tile GEMM
   with epilogue that carries the factorizations' trailing update
@@ -11,6 +12,8 @@ their launch counts.
   (``csrc/flash_attention.cu``);
 * :mod:`~repro_torch.kernels.decode_attention` — the attention of a decode
   step over the KV cache (``csrc/decode_attention.cu``);
+* :mod:`~repro_torch.kernels.ssd_scan` — the Mamba2 SSD chunk scan of an
+  SSM layer's prefill (``csrc/ssd_scan.cu``);
 * :mod:`~repro_torch.kernels.ref` — the plain versions;
 * :func:`launch_counts` / :func:`reset_launch_counts` — every kernel's
   launch count, for showing that a run went through the kernels.
@@ -21,12 +24,14 @@ from typing import Dict
 from . import ops, ref
 from .decode_attention import launches as _decode_attention_launches
 from .flash_attention import launches as _flash_attention_launches
+from .ssd_scan import launches as _ssd_scan_launches
 from .tile_matmul import launches as _tile_matmul_launches
 
 #: every kernel's launch counter, by kernel name
 COUNTERS = {c.name: c for c in (_tile_matmul_launches,
                                 _flash_attention_launches,
-                                _decode_attention_launches)}
+                                _decode_attention_launches,
+                                _ssd_scan_launches)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -13,9 +13,10 @@ import torch
 
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
+from .ssd_scan import ssd_scan as _ssd_scan
 from .tile_matmul import tile_matmul as _tile_matmul
 
-__all__ = ["decode_attention", "flash_attention", "tile_matmul"]
+__all__ = ["decode_attention", "flash_attention", "ssd_scan", "tile_matmul"]
 
 
 def tile_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -37,3 +38,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The Pallas ``decode_attention``'s function: q ``(B, H, d)`` over
     k/v ``(B, S, KV, d)``; k/v may hold fewer (grouped) heads than q."""
     return _decode_attention(q, k, v, length, window=window)
+
+
+def ssd_scan(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor):
+    """The Pallas ``ssd_scan``'s function: the Mamba2 SSD chunk scan over
+    xdt ``(B, nc, L, H, P)``, cs ``(B, nc, L, H)`` and Bm/Cm ``(B, nc, L,
+    N)``; returns ``(y, final_state)``."""
+    return _ssd_scan(xdt, cs, Bm, Cm)

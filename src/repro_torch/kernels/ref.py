@@ -12,7 +12,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["decode_attention_ref", "flash_attention_ref", "tile_matmul_ref"]
+__all__ = ["decode_attention_ref", "flash_attention_ref", "ssd_chunk_ref",
+           "ssd_scan_ref", "tile_matmul_ref"]
 
 
 def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor,
@@ -85,3 +86,56 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= pos > length - 1 - window
     out = _masked_softmax_pv(s, mask, v.permute(0, 2, 1, 3))
     return out.reshape(B, H, d).to(v.dtype)
+
+
+def ssd_chunk_ref(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor, s_in: torch.Tensor):
+    """One Mamba2 SSD chunk (the SSD kernel's unit of work), in float32.
+
+    xdt ``(L, H, P)`` = x * dt; cs ``(L, H)`` the cumulative log-decay;
+    Bm/Cm ``(L, N)``; s_in ``(H, N, P)`` the incoming state.  Returns
+    ``(y (L, H, P), s_out (H, N, P))``: y is the intra-chunk term
+    ``sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) xdt_j`` plus the inter-chunk
+    term ``exp(cs_i) C_i . s_in``; ``s_out = s_in exp(cs_L) + sum_j B_j
+    exp(cs_L - cs_j) xdt_j``.  The decay is masked with ``where`` after the
+    ``exp``, as the reference does: ``exp(cs_i - cs_j)`` for ``j > i`` may be
+    ``inf``, and ``where`` never multiplies it."""
+    L = xdt.shape[0]
+    f = torch.float32
+    x, c, b = xdt.to(f), Cm.to(f), Bm.to(f)
+    cb = c @ b.T                                                  # (L, L)
+    diff = cs[:, None, :] - cs[None, :, :]                        # (L, L, H)
+    mask = torch.ones(L, L, dtype=torch.bool, device=xdt.device).tril()
+    decay = torch.where(mask[:, :, None], torch.exp(diff),
+                        torch.zeros((), dtype=f, device=xdt.device))
+    y_intra = torch.einsum("ij,ijh,jhp->ihp", cb, decay, x)
+    y_inter = (torch.einsum("in,hnp->ihp", c, s_in.to(f))
+               * torch.exp(cs)[:, :, None])
+    w_end = torch.exp(cs[-1][None, :] - cs)                       # (L, H)
+    s_out = (s_in.to(f) * torch.exp(cs[-1])[:, None, None]
+             + torch.einsum("jn,jh,jhp->hnp", b, w_end, x))
+    return y_intra + y_inter, s_out
+
+
+def ssd_scan_ref(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor):
+    """The SSD chunk scan over the kernel's chunked layout: xdt ``(B, nc,
+    L, H, P)``, cs ``(B, nc, L, H)`` float32, Bm/Cm ``(B, nc, L, N)``.
+    Chunks run in order, each batch row carrying its float32 state from a
+    zero start (the reference package's ``ssd_scan_ref`` loop).  Returns
+    ``(y (B, nc, L, H, P)`` in xdt's dtype, ``final_state (B, H, N, P)``
+    float32)."""
+    B, nc, L, H, P = xdt.shape
+    N = Bm.shape[-1]
+    s = torch.zeros((B, H, N, P), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for c in range(nc):
+        ych, sch = [], []
+        for b in range(B):
+            y, s_b = ssd_chunk_ref(xdt[b, c], cs[b, c], Bm[b, c], Cm[b, c],
+                                   s[b])
+            ych.append(y)
+            sch.append(s_b)
+        ys.append(torch.stack(ych))
+        s = torch.stack(sch)
+    return torch.stack(ys, dim=1).to(xdt.dtype), s

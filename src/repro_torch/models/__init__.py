@@ -1,5 +1,6 @@
-"""LM substrate of the port: configs, the dense layers and model, and the
-decode-step serving graphs.
+"""LM substrate of the port: configs, the dense layers, the Mamba2 (SSD)
+block, the dense, ssm and hybrid models, and the decode-step serving
+graphs.
 
 The reference's sharding and training names (``param_pspecs``,
 ``cache_pspecs``, ``loss_fn``, ``forward``, ``abstract_params``) wait for
@@ -13,10 +14,12 @@ from .lm import (
     decode_step,
     init_params,
     model_spec,
+    n_attn_slots,
     params_from_reference,
     prefill,
     zeros_cache,
 )
+from .ssm import SSM, ssd_chunked, ssm_state_spec
 from .serving import (
     DecodeShard,
     DecodeState,
@@ -37,10 +40,14 @@ __all__ = [
     "shard_batch",
     "LM",
     "ModelConfig",
+    "SSM",
+    "ssd_chunked",
+    "ssm_state_spec",
     "cache_struct",
     "decode_step",
     "init_params",
     "model_spec",
+    "n_attn_slots",
     "params_from_reference",
     "prefill",
     "zeros_cache",

@@ -1,12 +1,20 @@
-"""The dense LM: parameters, KV caches, prefill and one decode step.
+"""The LM: parameters, decode caches, prefill and one decode step.
 
-The port of the reference's ``repro/models/lm.py`` for the ``dense``
-family.  The reference stacks its blocks along a leading ``layers`` axis
-and drives them with ``lax.scan``; here :class:`LM` holds one
-:class:`~repro_torch.models.layers.Block` per layer in an
-``nn.ModuleList`` and a Python loop drives them.  Per-layer window and rope
-theta come from :func:`layer_flags`, so gemma3-style local/global stacks
-run too.
+The port of the reference's ``repro/models/lm.py`` for the ``dense``,
+``ssm`` and ``hybrid`` families.  The reference stacks its blocks along a
+leading ``layers`` axis and drives them with ``lax.scan``; here :class:`LM`
+holds one block per layer in an ``nn.ModuleList`` and a Python loop drives
+them:
+
+* ``dense``: :class:`~repro_torch.models.layers.Block` (attention and MLP);
+  per-layer window and rope theta come from :func:`layer_flags`, so
+  gemma3-style local/global stacks run too;
+* ``ssm`` (mamba2): :class:`SSMBlock`, ``x + ssm(ln1(x))``;
+* ``hybrid`` (zamba2): SSM blocks plus one ``shared`` attention+MLP
+  :class:`~repro_torch.models.layers.Block` (window 0, ``cfg.rope_theta``)
+  that runs *before* the SSM block of every layer whose
+  ``layer_flags(cfg)["use_attn"]`` is set, each such layer keeping its own
+  K/V slot (``attn_slot``) in the cache.
 
 Entry points:
 
@@ -19,9 +27,9 @@ Entry points:
 Every entry point that makes tensors defaults to the CUDA device and raises
 when there is none; pass ``device="cpu"`` to run on the host.
 
-The other families (moe, ssm, hybrid, encdec, vlm) raise
-``NotImplementedError`` naming the ROADMAP item that ports them; so do the
-training entry points (``forward``, ``loss_fn``), which are not here.
+The other families (moe, encdec, vlm) raise ``NotImplementedError``
+naming the ROADMAP item that ports them; so do the training entry points
+(``forward``, ``loss_fn``), which are not here.
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ from torch import nn
 from ..linalg.tiles import resolve_device
 from . import layers as L
 from .config import ModelConfig
+from .ssm import SSM, ssm_spec, ssm_state_spec
 
-__all__ = ["LM", "cache_struct", "decode_step", "init_params",
-           "layer_flags", "logits_from_hidden", "model_spec", "padded_vocab",
-           "params_from_reference", "prefill", "zeros_cache"]
+__all__ = ["LM", "SSMBlock", "block_spec", "cache_struct", "decode_step",
+           "init_params", "layer_flags", "logits_from_hidden", "model_spec",
+           "n_attn_slots", "padded_vocab", "params_from_reference", "prefill",
+           "zeros_cache"]
 
 Device = Union[str, torch.device, None]
 
@@ -49,15 +59,12 @@ _FAMILY_NOT_PORTED = {
               "lm._encode)",
     "vlm": "ROADMAP Queue A item 9b (enc-dec and VLM: cross-attention, "
            "lm._encode)",
-    "ssm": "ROADMAP Queue A item 9c (SSM and hybrid: models/ssm.py, "
-           "kernels/ssd_scan.py)",
-    "hybrid": "ROADMAP Queue A item 9c (SSM and hybrid: models/ssm.py, "
-              "kernels/ssd_scan.py)",
 }
+_SSM_FAMILIES = ("ssm", "hybrid")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family in _FAMILY_NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
             f"yet; see {_FAMILY_NOT_PORTED[cfg.family]}")
@@ -70,27 +77,67 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 256) * 256
 
 
+def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {"ln1": (d,), "attn": L.attn_spec(cfg), "ln2": (d,),
+            "mlp": L.mlp_spec(cfg)}
+
+
+def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """Parameter shapes of one layer's block: attention and MLP (dense), or
+    ``{ln1, ssm}`` (ssm, hybrid)."""
+    _require_ported(cfg)
+    if cfg.family in _SSM_FAMILIES:
+        return {"ln1": (cfg.d_model,), "ssm": ssm_spec(cfg)}
+    return _dense_block_spec(cfg)
+
+
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """Parameter shapes by reference path (``blocks`` without the layer
-    axis): the layout :func:`params_from_reference` reads."""
-    _require_dense(cfg)
+    axis): the layout :func:`params_from_reference` reads.  A hybrid's
+    ``shared`` block is one block, not stacked."""
     v, d = padded_vocab(cfg), cfg.d_model
     spec: Dict[str, Any] = {
         "embed": {"table": (v, d)},
         "final_norm": (d,),
-        "blocks": {"ln1": (d,), "attn": L.attn_spec(cfg), "ln2": (d,),
-                   "mlp": L.mlp_spec(cfg)},
+        "blocks": block_spec(cfg),
     }
     if not cfg.tie_embeddings:
         spec["unembed"] = {"out": (d, v)}
+    if cfg.family == "hybrid":
+        spec["shared"] = _dense_block_spec(cfg)
     return spec
 
 
+def n_attn_slots(cfg: ModelConfig) -> int:
+    """K/V slots of the decode cache: one per layer, or for a hybrid one
+    per layer that runs the shared attention block."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // max(1, cfg.attn_every)
+    return cfg.n_layers
+
+
 def layer_flags(cfg: ModelConfig) -> Dict[str, List]:
-    """Per-layer ``window`` (0 = full) and rope ``theta``: with
-    ``local_global_ratio = r`` every ``(r+1)``-th layer is global (window
-    0, theta 1e6) and the rest local (``cfg.window``, ``cfg.rope_theta``)."""
+    """Per-layer flags, as host lists.
+
+    * dense: ``window`` (0 = full) and rope ``theta``; with
+      ``local_global_ratio = r`` every ``(r+1)``-th layer is global (window
+      0, theta 1e6) and the rest local (``cfg.window``, ``cfg.rope_theta``);
+    * hybrid: ``use_attn`` (layer ``l`` runs the shared block when ``l %
+      attn_every == attn_every - 1``) and ``attn_slot``, the reference's
+      ``max(cumsum(use_attn) - 1, 0)``: where ``use_attn``, the K/V slot the
+      layer writes, the number of such layers before it;
+    * ssm: none."""
     n = cfg.n_layers
+    if cfg.family in _SSM_FAMILIES:
+        if cfg.family != "hybrid" or not cfg.attn_every:
+            return {}
+        use = [l % cfg.attn_every == cfg.attn_every - 1 for l in range(n)]
+        slots, seen = [], 0
+        for u in use:
+            seen += u
+            slots.append(max(seen - 1, 0))
+        return {"use_attn": use, "attn_slot": slots}
     if cfg.local_global_ratio:
         r = cfg.local_global_ratio
         is_global = [i % (r + 1) == r for i in range(n)]
@@ -111,25 +158,47 @@ class _Unembed(nn.Module):
         self.out = L._param((d, v), dtype, device)
 
 
+class SSMBlock(nn.Module):
+    """One layer of the ssm and hybrid families: ``x + ssm(ln1(x))``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = L._param((cfg.d_model,), dtype, device)
+        self.ssm = SSM(cfg, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, state=None):
+        """Returns ``(x, new_state)``; see :meth:`SSM.forward`."""
+        out, new_state = self.ssm(L.rmsnorm(x, self.ln1, self.cfg.norm_eps),
+                                  state)
+        return x + out, new_state
+
+
 class LM(nn.Module):
-    """The dense decoder: ``embed.table``, ``blocks`` (an ``nn.ModuleList``
-    of :class:`~repro_torch.models.layers.Block`), ``final_norm`` and, when
-    embeddings are not tied, ``unembed.out``.  Parameters are made empty on
-    ``device`` in ``cfg``'s dtype and filled by :func:`init_params` or
-    :func:`params_from_reference`."""
+    """The decoder: ``embed.table``, ``blocks`` (an ``nn.ModuleList`` of
+    :class:`~repro_torch.models.layers.Block` for the dense family, of
+    :class:`SSMBlock` for ssm and hybrid), ``final_norm``, ``unembed.out``
+    when embeddings are not tied and, for a hybrid, the ``shared``
+    attention+MLP :class:`~repro_torch.models.layers.Block`.  Parameters
+    are made empty on ``device`` in ``cfg``'s dtype and filled by
+    :func:`init_params` or :func:`params_from_reference`."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        _require_dense(cfg)
+        _require_ported(cfg)
         self.cfg = cfg
         dt = cfg.torch_dtype
         v, d = padded_vocab(cfg), cfg.d_model
         self.embed = _Embed(v, d, dt, device)
+        block = SSMBlock if cfg.family in _SSM_FAMILIES else L.Block
         self.blocks = nn.ModuleList(
-            L.Block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
+            block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
         self.final_norm = L._param((d,), dt, device)
         if not cfg.tie_embeddings:
             self.unembed = _Unembed(d, v, dt, device)
+        if cfg.family == "hybrid":
+            self.shared = L.Block(cfg, dtype=dt, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -159,10 +228,10 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     """The reference package's parameter pytree as an :class:`LM`.
 
     ``tree`` holds nested dicts of numpy arrays in the reference's layout:
-    ``embed/table``, ``final_norm``, ``unembed/out`` (untied) and
-    ``blocks/...`` with the leading ``layers`` axis stacked; each layer's
-    slice goes to ``blocks[i]`` — the serving counterpart of
-    ``linalg.tiles.from_numpy_tiles``."""
+    ``embed/table``, ``final_norm``, ``unembed/out`` (untied),
+    ``blocks/...`` with the leading ``layers`` axis stacked, and a hybrid's
+    unstacked ``shared/...``; each layer's slice goes to ``blocks[i]`` —
+    the serving counterpart of ``linalg.tiles.from_numpy_tiles``."""
     model = LM(cfg, resolve_device(device))
     params = dict(model.named_parameters())
 
@@ -207,13 +276,28 @@ def logits_from_hidden(params: LM, cfg: ModelConfig,
 # decode caches
 # ---------------------------------------------------------------------------
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
-    """``{"k", "v": (shape, dtype), "index": int}`` of the decode cache:
-    K/V ``(n_layers, batch, max_len, n_kv_heads, head_dim)``, the
-    reference's layout."""
-    _require_dense(cfg)
-    kv = ((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-          cfg.torch_dtype)
-    return {"k": kv, "v": kv, "index": int}
+    """The decode cache's layout, the reference's, as ``(shape, dtype)``
+    leaves and ``"index": int``:
+
+    * ``"k"``, ``"v"`` (dense, hybrid): ``(n_attn_slots, batch, max_len,
+      n_kv_heads, head_dim)`` in the model's dtype;
+    * ``"ssm"`` (ssm, hybrid): a dict of every layer's stacked state,
+      ``"ssm"`` ``(n_layers, batch, H, N, P)`` float32 and ``"conv_x"``,
+      ``"conv_b"``, ``"conv_c"`` ``(n_layers, batch, conv_width - 1, C)``
+      in the model's dtype."""
+    _require_ported(cfg)
+    dt = cfg.torch_dtype
+    out: Dict[str, Any] = {}
+    if cfg.family in ("dense", "hybrid"):
+        kv = ((n_attn_slots(cfg), batch, max_len, cfg.n_kv_heads,
+               cfg.head_dim), dt)
+        out["k"] = kv
+        out["v"] = kv
+    if cfg.family in _SSM_FAMILIES:
+        out["ssm"] = {name: ((cfg.n_layers,) + shape, sdt) for name, (shape, sdt)
+                      in ssm_state_spec(cfg, batch, dt).items()}
+    out["index"] = int
+    return out
 
 
 def zeros_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -222,16 +306,18 @@ def zeros_cache(cfg: ModelConfig, batch: int, max_len: int,
     the fill, is a Python int kept on the host (the reference carries an
     int32 device scalar with the same values), so a decode step passes it
     to the attention kernel as a launch argument and never synchronises to
-    read it."""
+    read it.  An ssm cache has no K/V and no length limit."""
     dev = resolve_device(device)
-    out: Dict[str, Any] = {}
-    for name, spec in cache_struct(cfg, batch, max_len).items():
-        if name == "index":
-            out[name] = 0
-        else:
-            shape, dt = spec
-            out[name] = torch.zeros(shape, dtype=dt, device=dev)
-    return out
+
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        if spec is int:
+            return 0
+        shape, dt = spec
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return make(cache_struct(cfg, batch, max_len))
 
 
 def _rope_by_theta(cfg: ModelConfig, flags, positions: torch.Tensor):
@@ -250,6 +336,40 @@ def _no_ctx(ctx) -> None:
 # ---------------------------------------------------------------------------
 # prefill / decode
 # ---------------------------------------------------------------------------
+def _ssm_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict[str, Any], positions: torch.Tensor,
+                decode: bool) -> torch.Tensor:
+    """The layer loop of the ssm and hybrid families, writing the cache in
+    place: each layer's SSM state (prefill: the state after the prompt;
+    decode: the state after this token) and, for the layers that run the
+    shared block, that block's K/V in the layer's slot (prefill: positions
+    ``[:S]``; decode: position ``index``)."""
+    flags = layer_flags(cfg)
+    use_attn = flags.get("use_attn", [False] * cfg.n_layers)
+    tables = (L.rope_tables(positions, cfg.rope_theta, cfg.head_dim)
+              if any(use_attn) else None)
+    states = cache["ssm"]
+    S = x.shape[1]
+    idx = cache["index"]
+    for i, blk in enumerate(params.blocks):
+        if use_attn[i]:
+            slot = flags["attn_slot"][i]
+            if decode:
+                x, _ = params.shared(x, window=0, rope_cs=tables,
+                                     cache={"k": cache["k"][slot],
+                                            "v": cache["v"][slot]},
+                                     cache_index=idx)
+            else:
+                x, kv = params.shared(x, window=0, rope_cs=tables)
+                cache["k"][slot, :, :S] = kv["k"]
+                cache["v"][slot, :, :S] = kv["v"]
+        st = {name: t[i] for name, t in states.items()} if decode else None
+        x, new = blk(x, st)
+        for name, t in states.items():
+            t[i] = new[name]
+    return x
+
+
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
             max_len: int = 0):
@@ -264,14 +384,17 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
     max_len = max_len or Sq + 1
     cache = zeros_cache(cfg, B, max_len, device=dev)
     x = params.embed.table[tokens]
-    flags = layer_flags(cfg)
     positions = torch.arange(Sq, device=dev)[None, :]
-    tables = _rope_by_theta(cfg, flags, positions)
-    for i, blk in enumerate(params.blocks):
-        x, kv = blk(x, window=flags["window"][i],
-                    rope_cs=tables[flags["theta"][i]])
-        cache["k"][i, :, :Sq] = kv["k"]
-        cache["v"][i, :, :Sq] = kv["v"]
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_layers(params, cfg, x, cache, positions, decode=False)
+    else:
+        flags = layer_flags(cfg)
+        tables = _rope_by_theta(cfg, flags, positions)
+        for i, blk in enumerate(params.blocks):
+            x, kv = blk(x, window=flags["window"][i],
+                        rope_cs=tables[flags["theta"][i]])
+            cache["k"][i, :, :Sq] = kv["k"]
+            cache["v"][i, :, :Sq] = kv["v"]
     cache["index"] = Sq
     h = L.rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return cache, logits_from_hidden(params, cfg, h)
@@ -283,23 +406,29 @@ def decode_step(params: LM, cfg: ModelConfig, cache: Dict[str, Any],
     """One decode step for ``tokens`` ``(B, 1)``; returns ``(cache,
     logits)`` with logits ``(B, 1, padded_vocab)``.
 
-    Unlike the reference, which returns new arrays, the step writes this
-    token's K/V into ``cache["k"]``/``cache["v"]`` *in place*; the returned
-    cache is a new dict over the same tensors with ``index + 1``."""
+    Unlike the reference, which returns new arrays, the step writes the
+    cache *in place*: this token's K/V into ``cache["k"]``/``cache["v"]``
+    and every layer's new SSM and conv states into ``cache["ssm"]``; the
+    returned cache is a new dict over the same tensors with ``index + 1``.
+    A cache with K/V holds ``max_len`` positions and raises when full; an
+    ssm cache is a fixed-size state and never fills."""
     _no_ctx(ctx)
     dev = params.device
     idx = cache["index"]
-    if idx >= cache["k"].shape[2]:
+    if "k" in cache and idx >= cache["k"].shape[2]:
         raise ValueError(f"the cache is full ({idx} positions)")
     x = params.embed.table[tokens]
-    flags = layer_flags(cfg)
     positions = torch.full((1, 1), idx, dtype=torch.int64, device=dev)
-    tables = _rope_by_theta(cfg, flags, positions)
-    ck, cv = cache["k"], cache["v"]
-    for i, blk in enumerate(params.blocks):
-        x, _ = blk(x, window=flags["window"][i],
-                   rope_cs=tables[flags["theta"][i]],
-                   cache={"k": ck[i], "v": cv[i]}, cache_index=idx)
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_layers(params, cfg, x, cache, positions, decode=True)
+    else:
+        flags = layer_flags(cfg)
+        tables = _rope_by_theta(cfg, flags, positions)
+        ck, cv = cache["k"], cache["v"]
+        for i, blk in enumerate(params.blocks):
+            x, _ = blk(x, window=flags["window"][i],
+                       rope_cs=tables[flags["theta"][i]],
+                       cache={"k": ck[i], "v": cv[i]}, cache_index=idx)
     new_cache = dict(cache)
     new_cache["index"] = idx + 1
     h = L.rmsnorm(x, params.final_norm, cfg.norm_eps)

@@ -14,8 +14,9 @@ of prompts, then decodes ``--tokens`` tokens per request, under one of:
 ``--arrivals poisson`` serves a seeded Poisson stream of single-prompt
 requests through the continuous-batching engine instead.
 
-The model is the architecture's published configuration at full width and
-depth in its own dtype, on the CUDA device: ``--reduced`` takes the
+The model is ``--arch``'s published configuration (a dense, ssm or hybrid
+family: qwen3-14b by default, mamba2-2.7b, zamba2-7b, ...) at full width
+and depth in its own dtype, on the CUDA device: ``--reduced`` takes the
 reference's small smoke configuration, ``--layers N`` cuts the depth,
 ``--device cpu`` runs on the host.  Prompts are drawn with numpy from seed
 1 (the reference draws them with ``jax.random``, so the ids differ).
@@ -23,6 +24,8 @@ reference's small smoke configuration, ``--layers N`` cuts the depth,
 (ROADMAP Queue A items 3, 5 and 6).
 
 Run:  python -m repro_torch.serving.serve_lm --reduced --device cpu
+      python -m repro_torch.serving.serve_lm --arch zamba2-7b --reduced \
+          --device cpu
       python -m repro_torch.serving.serve_lm --arrivals poisson \\
           --rate 100 --requests 12
 """

@@ -17,9 +17,10 @@ import repro_torch
 from repro_torch.kernels import cuda_lib, launch_counts
 from repro_torch.kernels import tile_matmul as tm
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,
-                                     tile_matmul_ref)
+                                     ssd_scan_ref, tile_matmul_ref)
 from repro_torch.linalg import (build_cholesky_graph, cholesky_extract,
                                 random_spd, to_tiles)
 
@@ -124,6 +125,7 @@ ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
     (2, 4, 2, 200, 32, 137, 0),         # the reduced configs' head dim
     (1, 16, 8, 300, 256, 300, 100),     # gemma3's head dim
     (1, 40, 8, 545, 128, 0, 0),         # empty cache: zeros
+    (1, 32, 32, 545, 112, 545, 0),      # zamba2's shared block: MHA, d = 112
 ])
 def test_decode_attention_kernel_matches_plain_version(
         cuda, dtype, B, H, KV, S, d, length, window):
@@ -153,6 +155,7 @@ def test_decode_attention_kernel_matches_plain_version(
     (2, 4, 2, 200, 32, True, 0),
     (1, 4, 4, 130, 64, False, 0),
     (1, 16, 8, 257, 256, True, 100),
+    (1, 32, 32, 512, 112, True, 0),     # zamba2's shared block: MHA, d = 112
 ])
 def test_flash_attention_kernel_matches_plain_version(
         cuda, dtype, B, H, KV, S, d, causal, window):
@@ -200,7 +203,7 @@ def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
     state = make_decode_state(model, cfg, {"tokens": prompts}, n_shards=lanes,
                               max_len=max_len)
     assert launch_counts() == {"tile_matmul": 0, "flash_attention": 2 * lanes,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ssd_scan": 0}
     reset_launch_counts()
     with repro_torch.Session(2) as s:
         for _ in range(steps - 1):
@@ -208,7 +211,8 @@ def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
                 state, lambda p, c, t: decode_step(p, cfg, c, t)))
     torch.cuda.synchronize()
     assert launch_counts() == {"tile_matmul": 0, "flash_attention": 0,
-                               "decode_attention": 2 * lanes * (steps - 1)}
+                               "decode_attention": 2 * lanes * (steps - 1),
+                               "ssd_scan": 0}
     assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
 
     loop = []
@@ -223,4 +227,144 @@ def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
             toks.append(tok)
         loop.append(torch.cat(toks, 1))
     assert state.tokens().shape == (lanes, steps)
+    assert torch.equal(state.tokens(), torch.cat(loop, 0))
+
+
+# the SSD scan: float32 sums in another order than the plain version's;
+# bfloat16 y rounds once from such sums (one unit in the last place at
+# most, as ATTN_TOL); chip_smoke.py's SSD_TOL
+SSD_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=1e-2, atol=1e-4)}
+
+
+def _ssd_inputs(B, T, H, N, P, chunk, dtype, device, seed):
+    """The kernel's inputs made as an SSM layer makes them: silu'd x, B
+    and C, step sizes softplus(N(0, 0.8)) ~ 0.75 and a = -1, so cs falls to
+    about -95 across a 128-step chunk; laid out and padded by the model's
+    own ``ssd_scan_inputs``."""
+    from repro_torch.models.ssm import ssd_scan_inputs
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+
+    silu = torch.nn.functional.silu
+    xs = silu(t(rng.standard_normal((B, T, H, P))))
+    dt = torch.nn.functional.softplus(t(0.8 * rng.standard_normal((B, T, H))))
+    Bm = silu(t(rng.standard_normal((B, T, N))))
+    Cm = silu(t(rng.standard_normal((B, T, N))))
+    a = -torch.ones(H, device=device)
+    xdt, cs, Bm, Cm = ssd_scan_inputs(xs, dt, a, Bm, Cm, chunk=chunk)
+    return xdt.to(dtype), cs, Bm.to(dtype), Cm.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,N,P,chunk", [
+    (1, 512, 112, 64, 64, 128),         # zamba2-7b's prefill
+    (1, 512, 80, 128, 64, 128),         # mamba2-2.7b's
+    (1, 300, 112, 64, 64, 128),         # ragged: the last chunk padded
+    (2, 512, 112, 64, 64, 128),
+    (1, 100, 112, 64, 64, 128),         # one short chunk, L = T = 100
+    (2, 80, 8, 16, 32, 32),             # the reduced configs
+])
+def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, T, H, N, P,
+                                               chunk):
+    dt = getattr(torch, dtype)
+    xdt, cs, Bm, Cm = _ssd_inputs(B, T, H, N, P, chunk, dt, cuda, seed=13)
+    if chunk == 128:              # the decay that overflows above the diagonal
+        assert cs.min().item() < -50
+    ey, es = ssd_scan_ref(xdt, cs, Bm, Cm)
+    before = launch_counts()["ssd_scan"]
+    y, s = ss.ssd_scan(xdt, cs, Bm, Cm)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan"] == before + 1
+    assert y.shape == xdt.shape and y.dtype == dt
+    assert s.shape == (B, H, N, P) and s.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y.float(), ey.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(s, es, **SSD_TOL["float32"])
+    y2, s2 = ss.ssd_scan(xdt, cs, Bm, Cm)
+    assert torch.equal(y, y2) and torch.equal(s, s2)   # no atomics: same bits
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    xdt, cs, Bm, Cm = _ssd_inputs(1, 64, 2, 16, 32, 64, torch.float32, cuda,
+                                  seed=0)
+    with pytest.raises(ValueError, match="head dim P"):
+        ss.ssd_scan(xdt[..., :16].contiguous(), cs, Bm, Cm)
+    big = _ssd_inputs(1, 256, 2, 128, 64, 256, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.ssd_scan(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan(xdt.transpose(3, 4).contiguous().transpose(3, 4), cs,
+                    Bm, Cm)
+
+
+def test_ssd_scan_with_unbuildable_kernel_raises(cuda, monkeypatch, tmp_path):
+    """No fallback: when the kernel cannot be built, a CUDA call raises."""
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_lib, "NVCC_FLAGS",
+                        cuda_lib.NVCC_FLAGS + ("--no-such-nvcc-flag",))
+    monkeypatch.setattr(cuda_lib, "_libs", {})
+    monkeypatch.setattr(ss, "_fn", None)
+    xdt, cs, Bm, Cm = _ssd_inputs(1, 64, 2, 16, 32, 64, torch.float32, cuda,
+                                  seed=0)
+    before = launch_counts()["ssd_scan"]
+    with pytest.raises(cuda_lib.BuildError):
+        ss.ssd_scan(xdt, cs, Bm, Cm)
+    assert launch_counts()["ssd_scan"] == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_reduced_ssm_model_serves_on_card_graph_equals_plain_loop(cuda, arch):
+    """The reduced mamba2-2.7b and zamba2-7b made on the card: the
+    decode-step graphs on ``Session(2)`` give the plain loop's tokens bit
+    for bit; every SSM layer's prefill launches the scan kernel once, and
+    zamba2's shared block each attention kernel once per use."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import (build_decode_graph, decode_step,
+                                    greedy_sample, init_params,
+                                    make_decode_state, prefill)
+    from repro_torch.models.lm import layer_flags
+
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    uses = sum(layer_flags(cfg).get("use_attn", []))
+    model = init_params(cfg, seed=0)
+    assert model.device.type == "cuda"                # the default device
+    lanes, prompt, steps = 3, 70, 6
+    max_len = prompt + steps + 1
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (lanes, prompt), dtype=np.int32)
+
+    reset_launch_counts()
+    state = make_decode_state(model, cfg, {"tokens": prompts}, n_shards=lanes,
+                              max_len=max_len)
+    assert launch_counts() == {"tile_matmul": 0,
+                               "flash_attention": uses * lanes,
+                               "decode_attention": 0,
+                               "ssd_scan": cfg.n_layers * lanes}
+    reset_launch_counts()
+    with repro_torch.Session(2) as s:
+        for _ in range(steps - 1):
+            s.run(build_decode_graph(
+                state, lambda p, c, t: decode_step(p, cfg, c, t)))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"tile_matmul": 0, "flash_attention": 0,
+                               "decode_attention": uses * lanes * (steps - 1),
+                               "ssd_scan": 0}
+    assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
+
+    loop = []
+    for b in range(lanes):
+        cache, logits = prefill(model, cfg, {"tokens": prompts[b:b + 1]},
+                                max_len=max_len)
+        tok = greedy_sample(logits)
+        toks = [tok]
+        for _ in range(steps - 1):
+            cache, logits = decode_step(model, cfg, cache, tok)
+            tok = greedy_sample(logits)
+            toks.append(tok)
+        loop.append(torch.cat(toks, 1))
     assert torch.equal(state.tokens(), torch.cat(loop, 0))

@@ -14,7 +14,7 @@ def test_port_imports_without_jax_or_reference_package():
         "import sys\n"
         "import repro_torch, repro_torch.linalg, repro_torch.kernels\n"
         "import repro_torch.models, repro_torch.serving, repro_torch.configs\n"
-        "import repro_torch.serving.serve_lm\n"
+        "import repro_torch.serving.serve_lm, repro_torch.models.ssm\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -172,8 +172,8 @@ def test_init_params_follows_the_fan_in_rule():
 
 
 def test_other_families_raise_naming_the_roadmap_item():
-    for arch in ("qwen3-moe-235b-a22b", "mamba2-2.7b", "zamba2-7b",
-                 "seamless-m4t-medium", "llama-3.2-vision-11b"):
+    for arch in ("qwen3-moe-235b-a22b", "seamless-m4t-medium",
+                 "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
             init_params(get_config(arch).reduced(), device="cpu")
 

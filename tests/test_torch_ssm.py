@@ -1,0 +1,379 @@
+"""The port's SSM and hybrid families against the reference package's.
+
+* The SSD chunk scan: the port's plain version (``ssd_scan_ref``, what the
+  CUDA kernel's wrapper runs on CPU tensors) against the Pallas kernel in
+  interpret mode and against the reference's own oracle, float32, at the
+  reference's limit ``rtol = atol = 1e-4`` (``tests/test_kernels.py``).
+* ``ssd_chunked`` and ``_causal_conv`` against ``repro.models.ssm``'s.
+* The reduced mamba2-2.7b and zamba2-7b through ``params_from_reference``:
+  an 80-token prompt (ragged at the reduced chunk of 32), then 8 decode
+  steps, logits within ``1e-4`` and greedy tokens identical, as
+  ``tests/test_torch_models.py`` does for qwen3.  The reference initialises
+  ``a_log``, ``dt_bias``, ``d_skip`` and its norm scales at zero or one,
+  and its zero ``ln1`` and ``final_norm`` zero every logit; the tree both
+  packages use here has every 1-D leaf drawn from numpy instead, so the
+  decay, step-size and skip paths are not trivial.
+* The reduced zamba2 served: decode graphs on ``Session(2)`` against the
+  plain loop, the engine against each request alone, and the port's engine
+  against the reference's, with identical token streams.
+
+Everything runs in float32 on the CPU, where the port's kernels take their
+plain versions.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro
+import repro_torch
+from repro.configs import get_config as jax_get_config
+from repro.kernels import ops as jax_ops
+from repro.kernels.ssd_scan import ssd_scan_ref as jax_ssd_scan_ref
+from repro.models import decode_step as jax_decode_step
+from repro.models import init_params as jax_init_params
+from repro.models import prefill as jax_prefill
+from repro.models import ssm as jax_ssm
+from repro.models.lm import layer_flags as jax_layer_flags
+from repro.serving import ContinuousBatchingEngine as JaxEngine
+from repro_torch.configs import get_config
+from repro_torch.kernels import launch_counts, ops
+from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.models import (build_decode_graph, cache_struct, decode_step,
+                                greedy_sample, init_params, make_decode_state,
+                                n_attn_slots, params_from_reference, prefill,
+                                zeros_cache)
+from repro_torch.models.lm import layer_flags, padded_vocab
+from repro_torch.models.ssm import _causal_conv, ssd_chunked
+from repro_torch.serving import ContinuousBatchingEngine, PoissonWorkload
+
+RTOL = ATOL = 1e-4
+PROMPT, STEPS, BATCH = 80, 8, 2
+ARCHS = ("mamba2-2.7b", "zamba2-7b")
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk scan
+def _scan_inputs(B, nc, L, H, N, P, *, seed, steep=False, pad=0):
+    """xdt, cs, Bm, Cm in the kernel's layout, float32 numpy.  ``steep``
+    makes the model's decay (step sizes ~0.75, a = -1: cs falls to about
+    -0.75 L across a chunk, so exp(cs_i - cs_j) above the diagonal
+    overflows); ``pad`` zeroes the last chunk's last steps as the model's
+    padding does (dt = 0: flat cs, zero xdt)."""
+    rng = np.random.default_rng(seed)
+    xdt = 0.2 * rng.standard_normal((B, nc, L, H, P))
+    if steep:
+        la = -(0.75 + 0.05 * rng.standard_normal((B, nc, L, H)))
+    else:
+        la = -0.05 * np.abs(rng.standard_normal((B, nc, L, H)))
+    Bm = 0.3 * rng.standard_normal((B, nc, L, N))
+    Cm = 0.3 * rng.standard_normal((B, nc, L, N))
+    if pad:
+        la[:, -1, L - pad:] = 0.0
+        xdt[:, -1, L - pad:] = 0.0
+        Bm[:, -1, L - pad:] = 0.0
+        Cm[:, -1, L - pad:] = 0.0
+    cs = np.cumsum(la, axis=2)
+    return [a.astype(np.float32) for a in (xdt, cs, Bm, Cm)]
+
+
+@pytest.mark.parametrize("B,nc,L,H,N,P,steep,pad", [
+    (1, 3, 32, 4, 16, 32, False, 0),       # tests/test_kernels.py's shapes
+    (2, 2, 64, 2, 32, 64, False, 0),
+    (1, 3, 32, 4, 16, 32, False, 16),      # a padded last chunk
+    (1, 1, 20, 4, 16, 32, False, 0),       # one short chunk, L = T < chunk
+    (1, 2, 128, 2, 16, 32, True, 0),       # the model's decay: overflow above
+])
+def test_ssd_scan_ref_matches_pallas_kernel_and_oracle(B, nc, L, H, N, P,
+                                                       steep, pad):
+    arrays = _scan_inputs(B, nc, L, H, N, P, seed=3, steep=steep, pad=pad)
+    y, s = ops.ssd_scan(*(torch.from_numpy(a) for a in arrays))
+    assert y.shape == (B, nc, L, H, P) and y.dtype == torch.float32
+    assert s.shape == (B, H, N, P) and s.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    jarrays = [jnp.asarray(a) for a in arrays]
+    jy, js = jax_ops.ssd_scan(*jarrays, mode="interpret")
+    oy, os_ = jax_ssd_scan_ref(*jarrays)
+    for want_y, want_s in ((jy, js), (oy, os_)):
+        np.testing.assert_allclose(_np(y), _np(want_y), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(_np(s), _np(want_s), rtol=RTOL, atol=ATOL)
+    assert launch_counts()["ssd_scan"] == 0          # CPU: the plain version
+
+
+def test_ssd_scan_checks_its_inputs():
+    xdt, cs, Bm, Cm = (torch.from_numpy(a) for a in
+                       _scan_inputs(1, 2, 8, 2, 4, 32, seed=0))
+    with pytest.raises(ValueError, match="cs must be"):
+        ops.ssd_scan(xdt, cs[..., :1], Bm, Cm)
+    with pytest.raises(ValueError, match="Cm must be"):
+        ops.ssd_scan(xdt, cs, Bm, Cm[..., :3])
+    with pytest.raises(TypeError, match="cs must be float32"):
+        ops.ssd_scan(xdt, cs.double(), Bm, Cm)
+    with pytest.raises(TypeError, match="Bm is torch.bfloat16"):
+        ops.ssd_scan(xdt, cs, Bm.bfloat16(), Cm)
+
+
+@pytest.mark.parametrize("T,chunk", [(96, 32), (80, 32), (20, 32)])
+def test_ssd_chunked_matches_the_reference(T, chunk):
+    B, H, P, N = 2, 3, 16, 8
+    rng = np.random.default_rng(4)
+    xs = (0.3 * rng.standard_normal((B, T, H, P))).astype(np.float32)
+    dt = (0.75 + 0.1 * rng.standard_normal((B, T, H))).astype(np.float32)
+    a = (-np.exp(0.3 * rng.standard_normal(H))).astype(np.float32)
+    Bm = (0.3 * rng.standard_normal((B, T, N))).astype(np.float32)
+    Cm = (0.3 * rng.standard_normal((B, T, N))).astype(np.float32)
+    y, s = ssd_chunked(*(torch.from_numpy(x) for x in (xs, dt, a, Bm, Cm)),
+                       chunk=chunk)
+    jy, js = jax_ssm.ssd_chunked(*(jnp.asarray(x) for x in (xs, dt, a, Bm,
+                                                             Cm)),
+                                 chunk=chunk)
+    assert y.shape == (B, T, H, P) and s.shape == (B, H, N, P)
+    np.testing.assert_allclose(_np(y), _np(jy), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(_np(s), _np(js), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 9])
+def test_causal_conv_matches_the_reference(T, with_state):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, T, 6)).astype(np.float32)
+    w = rng.standard_normal((4, 6)).astype(np.float32)
+    st = rng.standard_normal((2, 3, 6)).astype(np.float32) if with_state \
+        else None
+    y, ns = _causal_conv(torch.from_numpy(x), torch.from_numpy(w),
+                         None if st is None else torch.from_numpy(st))
+    jy, jns = jax_ssm._causal_conv(jnp.asarray(x), jnp.asarray(w),
+                                   None if st is None else jnp.asarray(st))
+    np.testing.assert_allclose(_np(y), _np(jy), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(_np(ns), _np(jns))
+
+
+# ---------------------------------------------------------------------------
+# the reduced models
+def ssm_reference_tree(cfg, seed: int = 0):
+    """The reference's initial parameters as numpy, with every 1-D leaf
+    (stacked: every per-layer vector) drawn from numpy: norm scales near
+    one, ``a_log``, ``dt_bias`` and ``d_skip`` around zero."""
+    rng = np.random.default_rng(seed)
+    tree = jax.tree.map(np.asarray, jax_init_params(cfg, jax.random.PRNGKey(0)))
+
+    def fix(path, x):
+        name = path[-1].key
+        stacked = path[0].key == "blocks"
+        if x.ndim - stacked != 1:
+            return x
+        noise = rng.standard_normal(x.shape)
+        if name in ("a_log", "dt_bias", "d_skip"):
+            return (0.5 * noise).astype(x.dtype)
+        return (1.0 + 0.1 * noise).astype(x.dtype)
+
+    return jax.tree_util.tree_map_with_path(fix, tree)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(cfg, tcfg, the port's LM, reference params)."""
+    cfg = jax_get_config(request.param).reduced()
+    tcfg = get_config(request.param).reduced()
+    tree = ssm_reference_tree(cfg)
+    model = params_from_reference(tcfg, tree, device="cpu")
+    return cfg, tcfg, model, jax.tree.map(jnp.asarray, tree)
+
+
+def _prompt(cfg, batch=BATCH, length=PROMPT, seed=1):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, length), dtype=np.int32)
+
+
+def test_layout_matches_the_reference(pair):
+    cfg, tcfg, model, _ = pair
+    tree = ssm_reference_tree(cfg)
+    names = dict(model.named_parameters())
+    for i in range(cfg.n_layers):
+        for leaf in ("wx", "a_log", "conv_x", "norm"):
+            assert torch.equal(names[f"blocks.{i}.ssm.{leaf}"],
+                               torch.from_numpy(tree["blocks"]["ssm"][leaf][i]))
+    if cfg.family == "hybrid":
+        assert torch.equal(names["shared.attn.wq"],
+                           torch.from_numpy(tree["shared"]["attn"]["wq"]))
+        ref_flags = jax_layer_flags(cfg)
+        flags = layer_flags(tcfg)
+        assert flags["use_attn"] == np.asarray(ref_flags["use_attn"]).tolist()
+        assert flags["attn_slot"] == np.asarray(ref_flags["attn_slot"]).tolist()
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(np.asarray(x).size for x in jax.tree.leaves(tree))
+    from repro.models.lm import cache_struct as jax_cache_struct
+    ref = jax_cache_struct(cfg, 2, 9)
+    ours = cache_struct(tcfg, 2, 9)
+    assert sorted(ours) == sorted(ref)
+    for name, (shape, dt) in ours["ssm"].items():
+        assert shape == ref["ssm"][name].shape
+        assert str(dt).split(".")[-1] == str(ref["ssm"][name].dtype)
+    if "k" in ref:
+        assert ours["k"][0] == ref["k"].shape
+        assert ours["k"][0][0] == n_attn_slots(tcfg)
+
+
+def test_prefill_and_decode_match_the_reference(pair):
+    cfg, tcfg, model, jparams = pair
+    tokens = _prompt(cfg)
+    max_len = PROMPT + STEPS + 1
+    jpre = jax.jit(lambda p, b: jax_prefill(p, cfg, b, None, max_len=max_len))
+    jdec = jax.jit(lambda p, c, t: jax_decode_step(p, cfg, c, t, None))
+    jcache, jlogits = jpre(jparams, {"tokens": jnp.asarray(tokens)})
+    cache, logits = prefill(model, tcfg, {"tokens": tokens}, max_len=max_len)
+    assert logits.shape == (BATCH, 1, padded_vocab(tcfg))
+    np.testing.assert_allclose(_np(logits), _np(jlogits), rtol=RTOL, atol=ATOL)
+    for name in ("ssm", "conv_x", "conv_b", "conv_c"):
+        np.testing.assert_allclose(_np(cache["ssm"][name]),
+                                   _np(jcache["ssm"][name]),
+                                   rtol=RTOL, atol=ATOL)
+    if cfg.family == "hybrid":
+        np.testing.assert_allclose(_np(cache["k"][:, :, :PROMPT]),
+                                   _np(jcache["k"][:, :, :PROMPT]),
+                                   rtol=RTOL, atol=ATOL)
+    assert cache["index"] == int(jcache["index"]) == PROMPT
+
+    tok = greedy_sample(logits)
+    jtok = jnp.argmax(jlogits[:, -1], -1)[:, None].astype(jnp.int32)
+    toks, jtoks = [tok], [jtok]
+    for _ in range(STEPS):
+        assert np.array_equal(tok.numpy(), np.asarray(jtok))
+        cache, logits = decode_step(model, tcfg, cache, tok)
+        jcache, jlogits = jdec(jparams, jcache, jtok)
+        np.testing.assert_allclose(_np(logits), _np(jlogits),
+                                   rtol=RTOL, atol=ATOL)
+        tok = greedy_sample(logits)
+        jtok = jnp.argmax(jlogits[:, -1], -1)[:, None].astype(jnp.int32)
+        toks.append(tok)
+        jtoks.append(jtok)
+    assert cache["index"] == PROMPT + STEPS
+    np.testing.assert_allclose(_np(cache["ssm"]["ssm"]),
+                               _np(jcache["ssm"]["ssm"]), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(torch.cat(toks, 1).numpy(),
+                                  np.concatenate(jtoks, 1))
+    # the streams are not degenerate: the random leaves give real logits
+    assert len(np.unique(torch.cat(toks, 1).numpy())) > 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_and_an_ssm_cache_that_never_fills(arch):
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, seed=0, device="cpu")
+    names = dict(model.named_parameters())
+    for n in ("blocks.0.ln1", "blocks.0.ssm.norm", "final_norm"):
+        assert torch.equal(names[n], torch.ones_like(names[n]))
+    for n in ("blocks.0.ssm.a_log", "blocks.0.ssm.dt_bias",
+              "blocks.0.ssm.d_skip"):
+        assert not names[n].any()
+    # a cache of 3 positions: the prompt fills it, so only an ssm model,
+    # whose state has no length, can decode on
+    cache, logits = prefill(model, cfg, {"tokens": _prompt(cfg, 1, 3)},
+                            max_len=3)
+    assert torch.isfinite(logits).all() and logits.abs().max() > 0
+    tok = greedy_sample(logits)
+    if cfg.family == "hybrid":
+        with pytest.raises(ValueError, match="the cache is full"):
+            decode_step(model, cfg, cache, tok)
+    else:
+        assert "k" not in cache
+        for _ in range(2):
+            cache, logits = decode_step(model, cfg, cache, tok)
+            tok = greedy_sample(logits)
+        assert cache["index"] == 5 and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_entry_points_default_to_cuda_and_raise_without_it(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    cfg = get_config(arch).reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zeros_cache(cfg, 1, 8)
+    model = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_decode_state(model, cfg, {"tokens": _prompt(cfg)}, n_shards=2,
+                          max_len=PROMPT + 2)
+
+
+# ---------------------------------------------------------------------------
+# the reduced zamba2 served
+PROMPT_LEN, BUDGET = (36, 72), (2, 6)
+MAX_LEN = PROMPT_LEN[1] + BUDGET[1] + 1
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    cfg = jax_get_config("zamba2-7b").reduced()
+    tcfg = get_config("zamba2-7b").reduced()
+    tree = ssm_reference_tree(cfg)
+    model = params_from_reference(tcfg, tree, device="cpu")
+    return cfg, tcfg, model, jax.tree.map(jnp.asarray, tree)
+
+
+def _port_engine(session, tcfg, model, **kw):
+    return ContinuousBatchingEngine(
+        session,
+        lambda cache, tok: decode_step(model, tcfg, cache, tok),
+        lambda prompt: prefill(model, tcfg, {"tokens": prompt},
+                               max_len=MAX_LEN),
+        step_time=0.01, **kw)
+
+
+def test_decode_graph_matches_the_plain_loop(zamba):
+    """make_decode_state + build_decode_graph on a 2-worker session give
+    the plain decode loop's tokens, bit for bit, at one lane per shard."""
+    _, tcfg, model, _ = zamba
+    prompts = _prompt(tcfg, 4, 45)
+    steps, max_len = 6, 45 + 6 + 1
+    state = make_decode_state(model, tcfg, {"tokens": prompts}, n_shards=4,
+                              max_len=max_len, device="cpu")
+    with repro_torch.Session(2) as s:
+        for _ in range(steps - 1):
+            s.run(build_decode_graph(
+                state, lambda p, c, t: decode_step(p, tcfg, c, t)))
+    loop = []
+    for b in range(4):
+        cache, logits = prefill(model, tcfg, {"tokens": prompts[b:b + 1]},
+                                max_len=max_len)
+        tok = greedy_sample(logits)
+        toks = [tok]
+        for _ in range(steps - 1):
+            cache, logits = decode_step(model, tcfg, cache, tok)
+            tok = greedy_sample(logits)
+            toks.append(tok)
+        loop.append(torch.cat(toks, 1))
+    assert state.tokens().shape == (4, steps)
+    assert torch.equal(state.tokens(), torch.cat(loop, 0))
+
+
+def test_engine_serves_the_reference_engines_token_streams(zamba):
+    cfg, tcfg, model, jparams = zamba
+    workload = PoissonWorkload(100.0, 6, seed=0, prompt_len=PROMPT_LEN,
+                               max_new_tokens=BUDGET,
+                               vocab_size=cfg.vocab_size)
+    jpre = jax.jit(lambda p, b: jax_prefill(p, cfg, b, None, max_len=MAX_LEN))
+    jdec = jax.jit(lambda p, c, t: jax_decode_step(p, cfg, c, t, None))
+    with repro.Session(2) as s:
+        ref = JaxEngine(s, lambda c, t: jdec(jparams, c, t),
+                        lambda prompt: jpre(jparams, {"tokens": prompt}),
+                        max_batch=3, step_time=0.01).run(workload.requests())
+    with repro_torch.Session(2) as s:
+        ours = _port_engine(s, tcfg, model, max_batch=3).run(
+            workload.requests())
+    with repro_torch.Session(2) as s:
+        alone = _port_engine(s, tcfg, model, max_batch=1).run(
+            workload.requests())
+    assert ours.tokens_by_rid() == ref.tokens_by_rid()
+    assert ours.tokens_by_rid() == alone.tokens_by_rid()
+    assert ours.shape_counts == ref.shape_counts
+    assert ours.completed == 6 and max(ours.shape_counts) > 1
