@@ -9,14 +9,17 @@ Phases, each printed as one JSON line:
 1. the card (also the raw ``nvidia-smi`` name and power limit line);
 2. the build of every kernel from ``src/repro_torch/kernels/csrc``, all
    ``nvcc`` processes at once, with each one's ptxas register, shared
-   memory and spill lines;
+   memory and spill lines, and the count of tensor-core (``HGMMA``)
+   instructions in the flash attention library, which must not be 0;
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card at its main paths' shapes (the attention kernels in float32 and in
    bfloat16, on the same inputs, at qwen3-14b's and at zamba2-7b's head
-   dims; the SSD scan at zamba2-7b's and mamba2-2.7b's prefill, ragged,
-   batched and short, with inputs made as an SSM layer makes them), with
-   its time, the plain version's time, one PyTorch library call's time
-   where there is one and the least time the card could take;
+   dims, each twice for the same bits; decode also with fewer keys than
+   splits, prefill also with needle inputs whose weight sits on one
+   masked-edge key; the SSD scan at zamba2-7b's and mamba2-2.7b's prefill,
+   ragged, batched and short, with inputs made as an SSM layer makes
+   them), with its time, the plain version's time, one PyTorch library
+   call's time where there is one and the least time the card could take;
 4. the Cholesky path: a float64 tiled Cholesky of ``random_spd(n, seed=0)``
    split into ``tile``-wide tiles, built with ``build_cholesky_graph`` and
    run by ``repro_torch.Session(4)`` under the ``hybrid`` and ``history``
@@ -43,7 +46,7 @@ Phases, each printed as one JSON line:
    request's tokens must equal serving it alone (``max_batch=1``);
 7. for each model one more 4-lane decode step under ``torch.profiler``:
    device time by kernel, kernels per lane-step and the device's busy
-   share;
+   share; then one 512-token prefill of one prompt: device time by kernel;
 8. a ``kernels`` summary line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -88,18 +91,29 @@ REPLACES = {"tile_matmul": "src/repro/kernels/tile_matmul.py:35",
             "flash_attention": "src/repro/kernels/flash_attention.py:76",
             "decode_attention": "src/repro/kernels/decode_attention.py:59",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:78"}
-#: the attention kernels against their plain versions.  Both keep p in
-#: float32 as the Pallas kernels do (the reference's layers.decode_attention
-#: rounds p to the cache's type before p . V, so it is not the yardstick
-#: here); what differs is the order of float32 sums, then one rounding of
-#: each output.  float32: tests/test_kernels.py's kernel tolerance.
-#: bfloat16: two roundings of nearly equal float32 values land at most one
-#: unit in the last place apart, at most 2**-7 |x| < 1e-2 |x|, and atol
-#: covers the float32 sums' ~1e-6 near zero.  On an H100 the bfloat16
-#: errors at these shapes read 2.4e-4 (decode, outputs near 0.07) and
-#: 3.9e-3 (prefill, outputs near 0.5), one such unit each.
+#: the attention kernels against their plain versions.  The plain versions
+#: keep p in float32 as the Pallas kernels do.  float32: both kernels keep p
+#: in float32 too, and meet tests/test_kernels.py's kernel tolerance.
+#: bfloat16 decode keeps p in float32, so it differs from the plain version
+#: only in the order of float32 sums, then one rounding of each output: two
+#: roundings of nearly equal float32 values land at most one unit in the
+#: last place apart, at most 2**-7 |x| < 1e-2 |x|, and atol covers the
+#: float32 sums' ~1e-6 near zero (on an H100 the decode errors read 2.4e-4
+#: on outputs near 0.07, one such unit).
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
+#: bfloat16 prefill runs p . V on the tensor cores with p rounded to
+#: bfloat16 (as the reference's layers._chunked_attn does), which adds a
+#: third rounding point.  With p_j = e^(s_j - m) and l = sum_j p_j (summed
+#: from the float32 p), each p_j carries a relative error of at most
+#: u = 2**-8 (bfloat16's unit roundoff), so the float32 output
+#: sum_j p_j (1 + d_j) v_j / l differs from the plain version's by at most
+#: u * sum_j p_j |v_j| / l: u times the same attention applied to |v|
+#: (higher orders are below float32's sums).  The limit is therefore
+#: ATTN_TOL's one-ulp bound plus FLASH_P_ROUND times that attention of |v|,
+#: element by element; it is proven against planted faults with needle
+#: inputs (attention_faults.py).
+FLASH_P_ROUND = 2.0 ** -8
 #: the SSD scan against its plain version: the same float32 products
 #: summed in another order.  float32: tests/test_kernels.py's kernel
 #: tolerance (the other kernels' here); on an H100 the largest error at the
@@ -174,6 +188,29 @@ def card_phase() -> str:
     return line
 
 
+def tensor_core_instructions(name: str) -> dict:
+    """How many ``HGMMA`` (wgmma) instructions the built library of
+    ``name`` holds: ``cuobjdump -sass`` where the toolkit has it, else
+    the ``wgmma.mma_async`` lines of the source's PTX (``nvcc -ptx``)."""
+    from repro_torch.kernels import cuda_lib
+
+    nvcc = Path(cuda_lib.nvcc_path())
+    cuobjdump = nvcc.with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(cuda_lib.library_path(name))],
+                              capture_output=True, text=True, check=True)
+        return {"tool": "cuobjdump -sass",
+                "count": sum("HGMMA" in ln for ln in sass.stdout.splitlines())}
+    ptx = subprocess.run(
+        [str(nvcc), "-gencode", "arch=compute_90a,code=compute_90a",
+         "-std=c++17", "-ptx", "-o", "-",
+         str(cuda_lib.CSRC / f"{name}.cu")],
+        capture_output=True, text=True, check=True)
+    return {"tool": "nvcc -ptx",
+            "count": ptx.stdout.count("wgmma.mma_async")}
+
+
 def build_phase() -> None:
     from repro_torch.kernels import cuda_lib
 
@@ -184,8 +221,13 @@ def build_phase() -> None:
                     .read_text().splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
              for name in KERNELS}
+    # the bfloat16 prefill kernel must run its products on the tensor cores
+    hgmma = tensor_core_instructions("flash_attention")
     emit({"phase": "build", "seconds": seconds,
-          "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
+          "wall_s": time.perf_counter() - t0,
+          "flash_attention_tensor_core_instructions": hgmma, "ptxas": ptxas})
+    check(hgmma["count"] > 0, "the flash attention library holds no wgmma "
+          f"instruction ({hgmma['tool']})")
 
 
 def kernel_case(name, dtype, M, N, K, *, gemm_sub: bool, seed: int):
@@ -260,27 +302,63 @@ def _bound(n_bytes: float, flops: float, dtype=torch.bfloat16):
                                    else "operations")
 
 
-def _compare(name: str, kernel, plain, arrays):
+def _compare(name: str, kernel, plain, arrays, slack=None):
     """Hold ``kernel`` against ``plain`` on the same numpy inputs, in
-    float32 and then in bfloat16.  Returns the bfloat16 inputs and output,
-    and per type the largest error and the largest share of the tolerance
-    that it used (1.0 is the limit)."""
+    float32 and then in bfloat16.  ``slack(*inputs)``, where given, adds an
+    element-wise allowance to the bfloat16 limit.  Returns the bfloat16
+    inputs and output, and per type the largest error and the largest share
+    of the limit that it used (1.0 is the limit)."""
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
         xs = [torch.from_numpy(a).to(device="cuda", dtype=dtype)
               for a in arrays]
         expect = plain(*xs).float()
         got = kernel(*xs)
+        again = kernel(*xs)
         torch.cuda.synchronize()
         diff = (got.float() - expect).abs()
         t = ATTN_TOL[dtype]
-        share = (diff / (t["atol"] + t["rtol"] * expect.abs())).max().item()
+        limit = t["atol"] + t["rtol"] * expect.abs()
+        if slack is not None and dtype == torch.bfloat16:
+            limit = limit + slack(*xs)
+        share = (diff / limit).max().item()
         key = str(dtype).split(".")[-1]
         errors[key] = {"max_abs_err": diff.max().item(), "tol": t,
                        "tol_share": share}
         check(share <= 1.0, f"{name} {key}: kernel vs plain version, max abs "
               f"err {diff.max().item()}, {share:.3g} of the tolerance")
+        check(torch.equal(got, again),
+              f"{name} {key}: two launches on the same inputs differ")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name} {key}: the kernel's output is not finite")
     return xs, got, errors
+
+
+def flash_slack(causal: bool, window: int):
+    """The bfloat16 prefill kernel's allowance for rounding p: FLASH_P_ROUND
+    times the float32 attention of |v| (see FLASH_P_ROUND)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    def slack(q, k, v):
+        return FLASH_P_ROUND * flash_attention_ref(
+            q.float(), k.float(), v.float().abs(), causal=causal,
+            window=window)
+    return slack
+
+
+def needle_arrays(rng, B, H, KV, S, d, offset):
+    """Prefill inputs where, in every row i >= offset, the key i - offset
+    carries nearly all the weight: the query heads of a KV group share one
+    standard-normal row u_i, and key j is 2 u_{j + offset}, so that score
+    is 2 |u|^2 / sqrt(d) ~ 2 sqrt(d) against ~N(0, 4) for the others.
+    offset 0 puts the needle on the causal diagonal (and, at a ragged S, on
+    the last key), window - 1 on the window's oldest key: a kernel that
+    drops that key is off by about |v| there."""
+    u = rng.standard_normal((B, KV, S + offset, d))
+    q = np.repeat(u[:, :, :S], H // KV, axis=1)
+    k = 2.0 * u[:, :, offset:]
+    v = rng.standard_normal((B, KV, S, d))
+    return [q, k, v]
 
 
 def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
@@ -290,7 +368,8 @@ def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
     behind the 28 GB of weights the step streams."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_splits)
     from repro_torch.kernels.ref import decode_attention_ref
 
     rng = np.random.default_rng(seed)
@@ -316,6 +395,7 @@ def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
     row = {"phase": "kernel", "case": name, "kernel": "decode_attention",
            "dtype": "bfloat16", "B": B, "H": H, "KV": KV, "S": S, "d": d,
            "length": length, "window": window,
+           "lo_splits_per": decode_splits(length, window, KV, d),
            "max_abs_err": errors["bfloat16"]["max_abs_err"], "errors": errors,
            "ms": device_ms(lambda: decode_attention(q, k, v, length,
                                                     window=window),
@@ -328,22 +408,35 @@ def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
     return row
 
 
-def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128):
-    """One causal prefill-attention shape: compare, then time kernel /
-    plain / ``scaled_dot_product_attention``."""
+def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128,
+               needle=None, timed=True):
+    """One causal prefill-attention shape: compare (bfloat16 at the derived
+    limit), then, if ``timed``, time kernel / plain /
+    ``scaled_dot_product_attention``.  ``needle=offset`` draws
+    :func:`needle_arrays` instead of plain normal inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
     rng = np.random.default_rng(seed)
-    arrays = [rng.standard_normal(s) for s in ((B, H, S, d), (B, KV, S, d),
-                                                (B, KV, S, d))]
+    if needle is None:
+        arrays = [rng.standard_normal(s) for s in
+                  ((B, H, S, d), (B, KV, S, d), (B, KV, S, d))]
+    else:
+        arrays = needle_arrays(rng, B, H, KV, S, d, needle)
     (q, k, v), _, errors = _compare(
         name, lambda q, k, v: flash_attention(q, k, v, causal=True,
                                               window=window),
         lambda q, k, v: flash_attention_ref(q, k, v, causal=True,
-                                            window=window), arrays)
+                                            window=window), arrays,
+        slack=flash_slack(True, window))
+    if not timed:
+        row = {"phase": "kernel", "case": name, "kernel": "flash_attention",
+               "B": B, "H": H, "KV": KV, "S": S, "d": d, "window": window,
+               "needle_offset": needle, "errors": errors}
+        emit(row)
+        return row
     pos = torch.arange(S, device=q.device)
     mask = pos[:, None] >= pos[None, :]
     if window > 0:
@@ -360,7 +453,7 @@ def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128):
                                 4.0 * B * H * d * pairs)
     row = {"phase": "kernel", "case": name, "kernel": "flash_attention",
            "dtype": "bfloat16", "B": B, "H": H, "KV": KV, "S": S, "d": d,
-           "causal": True, "window": window,
+           "causal": True, "window": window, "p_round": FLASH_P_ROUND,
            "max_abs_err": errors["bfloat16"]["max_abs_err"], "errors": errors,
            "ms": device_ms(lambda: flash_attention(q, k, v, causal=True,
                                                    window=window), reps=20),
@@ -719,14 +812,16 @@ def serving_poisson_phase(cfg, model, n_requests: int, smi):
     return row
 
 
-def serving_profile_phase(cfg, state, floor_bytes, smi) -> None:
+def serving_profile_phase(cfg, model, state, floor_bytes, smi) -> None:
     """One more 4-lane decode step of the batch path under
     ``torch.profiler``: device time by kernel, kernels per lane-step, the
-    device's busy share and the distance from the floor."""
+    device's busy share and the distance from the floor; then one
+    ``PROMPT``-token prefill of one prompt: device time per prompt by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import Session
-    from repro_torch.models import build_decode_graph, decode_step
+    from repro_torch.models import build_decode_graph, decode_step, prefill
 
     with Session(SERVE_WORKERS) as session:
         graph = build_decode_graph(
@@ -744,17 +839,36 @@ def serving_profile_phase(cfg, state, floor_bytes, smi) -> None:
     kernels = sum(r[2] for r in rows)
     check(kernels > 0, "the profiled decode step shows no device work")
     floor_s = state.n_shards * floor_bytes / HBM_BYTES_PER_S
+
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, PROMPT), dtype=np.int32), device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(model, cfg, {"tokens": prompt}, max_len=PROMPT + 1)
+        torch.cuda.synchronize()
+        prefill_wall_s = time.perf_counter() - t0
+    prefill_rows = _device_rows(prof)
+    prefill_device_s = sum(r[0] for r in prefill_rows) / 1e6
+    check(prefill_device_s > 0, "the profiled prefill shows no device work")
     emit({"phase": "serving_profile", "arch": cfg.name,
           "lanes": state.n_shards,
           "wall_s": wall_s, "enqueue_s": enqueue_s,
           "device_busy_s": device_s, "device_busy_share": device_s / wall_s,
           "device_kernels": kernels,
           "kernels_per_lane_step": kernels / state.n_shards,
+          "device_ms_per_lane_step": device_s / state.n_shards * 1e3,
           "host_us_per_kernel": enqueue_s / max(kernels, 1) * 1e6,
           "floor_s": floor_s, "wall_over_floor": wall_s / floor_s,
           "device_over_floor": device_s / floor_s,
           "top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
-                  for us, k, c in rows[:12]], "card": smi})
+                  for us, k, c in rows[:12]],
+          "prefill_tokens": PROMPT, "prefill_wall_s": prefill_wall_s,
+          "prefill_device_ms": prefill_device_s * 1e3,
+          "prefill_device_busy_share": prefill_device_s / prefill_wall_s,
+          "prefill_top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
+                          for us, k, c in prefill_rows[:8]], "card": smi})
 
 
 def factor(session, a, tile: int):
@@ -905,9 +1019,20 @@ def main() -> int:
     decode_case("decode S=1033 length=1000 window=64", 1033, 1000, 64,
                 seed=5)
     decode_case(f"decode S={max_len} length=0", max_len, 0, 0, seed=6)
+    # three keys across sixteen splits: thirteen ranges are empty
+    decode_case(f"decode S={max_len} length=3 (fewer keys than splits)",
+                max_len, 3, 0, seed=17)
     flash_main = flash_case(f"prefill S={PROMPT} causal", PROMPT, 0, seed=7)
     flash_case("prefill S=500 causal (ragged)", 500, 0, seed=8)
     flash_case(f"prefill S={PROMPT} causal window=64", PROMPT, 64, seed=9)
+    # needles: one masked-edge key carries nearly all of a row's weight, so
+    # a kernel that drops it cannot hide under the bfloat16 limit
+    flash_case(f"prefill S={PROMPT} needle on the diagonal", PROMPT, 0,
+               seed=18, needle=0, timed=False)
+    flash_case(f"prefill S={PROMPT} window=64 needle on the oldest key",
+               PROMPT, 64, seed=19, needle=63, timed=False)
+    flash_case("prefill S=500 needle on the diagonal and the ragged last key",
+               500, 0, seed=20, needle=0, timed=False)
     # zamba2-7b's shared attention block: MHA, head dim 112
     decode_case(f"decode zamba2 d=112 S={max_len} length={max_len}",
                 max_len, max_len, 0, seed=10, H=32, KV=32, d=112)
@@ -935,7 +1060,7 @@ def main() -> int:
                                                       floor_bytes, smi)
         if poisson:
             serving_poisson_phase(cfg, model, args.requests, smi)
-        serving_profile_phase(cfg, state, floor_bytes, smi)
+        serving_profile_phase(cfg, model, state, floor_bytes, smi)
         del model, state                  # free the card for the next model
         gc.collect()
         torch.cuda.empty_cache()

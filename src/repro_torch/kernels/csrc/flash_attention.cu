@@ -8,7 +8,7 @@
 // q and out are (B, H, S, d), k and v (B, KV, S, d), each read or written
 // through its (b, head, position) strides with the innermost dimension
 // contiguous, so a transposed view of the projections is taken without a
-// copy.  float32 and bfloat16, accumulated in float32.
+// copy.
 //
 // Replaces: repro/kernels/flash_attention.py::flash_attention (the Pallas
 // kernel `_flash_kernel`), which keeps a bq = 128 query block in VMEM and
@@ -18,50 +18,107 @@
 // calls it (q_offset = 0, Sq = Sk), which adds GQA and pads a ragged S:
 // here any S is taken and the ragged edge is masked inside the kernel.
 //
-// Design: one block of 256 threads per (64-query tile, head, batch); the
-// key sweep is a loop inside the block, since CUDA blocks carry nothing
-// between them.  Q, one 64-key tile of K and of V, and the 64 x 64 score
-// tile sit in shared memory as float32 (rows padded by one word against
-// bank conflicts).  Each thread computes a 4 x 4 patch of scores and owns
-// 4 rows x d/16 columns of the output accumulator in registers.  Masked
-// scores (after the causal diagonal, outside the window, past S) are set
-// to -inf *before* the row max, so a ragged or diagonal tile never feeds
-// garbage into the online-softmax carry; a row whose tile is all masked
-// keeps its carry unchanged.  Key tiles wholly after the diagonal or before
-// the window are skipped.  Row maxima and sums are warp butterfly
-// reductions in a fixed order: no atomics, the same bits on every run.
-//
 // What bounds it on an H100: causal prefill does 2 * S^2 * d * H flops (half
 // the square, QK and PV) and moves 2 * S * d * (2 * H + 2 * KV) bytes in
 // bf16; at qwen3-14b's heads (H = 40, KV = 8, d = 128) the two bounds meet
 // near S = 700 (3.35 TB/s against the bf16 tensor cores' 989 TFLOP/s), so a
-// 512-token prompt is bound by bytes and longer ones by operations.  This
-// kernel uses plain float32 FMAs from shared memory, far from either bound;
-// wgmma and TMA (the FlashAttention-3 design) are the later step.  The
-// score tile and float32 Q, K and V take 116 KB of shared memory at d = 128
-// (214 KB at d = 256), so one block runs per SM.
+// 512-token prompt is bound by bytes and longer ones by operations.
+//
+// Two kernels, chosen by the dtype (not a fallback: each type has one):
+//
+// bfloat16 -- tensor cores fed by TMA (the FlashAttention-3 shape).  One
+// block per (64-query tile, head, batch); the blocks of every head's last
+// query tile (the heaviest under the causal mask) are numbered first, so
+// they start first and the light ones fill in behind them.  The key sweep
+// is a loop inside the block, since CUDA blocks carry nothing between
+// them.  A producer warp issues TMA loads: the Q tile once,
+// then 64-key K and V tiles into a ring of 2 stages (3 at d <= 64), each
+// stage with a `full` mbarrier (bytes landed) and an `empty` one (the 128
+// consumer threads are done with it).  The tensor maps are built on the
+// host at each call over (d, S, heads, B) from the wrapper's strides, so GQA
+// and transposed views are read in place; their 64-column boxes land with
+// the 128-byte swizzle that the wgmma descriptors read.  A head dim that is
+// not a multiple of 64 (zamba2's 112) has a map whose d extent is the real
+// d: TMA fills the columns past it with zeros, the products run at the
+// padded width DP, and those output columns are never stored.  One
+// consumer warpgroup of 128 threads per block:
+//   S = Q . K^T  wgmma m64n64k16, bf16 -> f32, both operands K-major in
+//                shared memory (DP / 16 instructions);
+//   softmax      in registers on the accumulator fragments: masked scores
+//                (after the diagonal, outside the window, past S) are -inf
+//                *before* the row max, so a row whose tile is all masked
+//                keeps its carry; scores in log2 units, exp2; each row's
+//                max and sum are two xor shuffles over the 4 lanes that hold
+//                it, a fixed order: no atomics, the same bits on every run;
+//   O += P . V   P rounded to bf16 in registers is the register-A operand
+//                of a second wgmma (m64nDPk16): the f32 accumulator's
+//                fragment of S is, pair by pair, the A fragment of the
+//                product, so P never goes through shared memory; V, a
+//                keys x d tile with d contiguous, is the MN-major B operand
+//                (read transposed by the descriptor).
+// The sum l adds the float32 p before rounding; the epilogue divides by
+// max(l, 1e-30) and stores bf16 pairs from registers.  Rounding P to bf16
+// is what the model path's reference does (repro/models/layers.py
+// _chunked_attn: p.astype(vb.dtype) before p . V); the Pallas kernel, the
+// plain version and the float32 kernel keep p in float32.  The first-order
+// error it adds is at most 2^-8 * sum_j p_j |v_j| / l per output (the
+// derived bf16 limit of chip_smoke.py and tests/test_torch_cuda.py).
+// Key tiles wholly after the diagonal or before the window are skipped.
+// Shared memory: Q and 2 stages of K and V at DP = 128 take 80 KB, so two
+// blocks share an SM (160 KB at DP = 256: one).
+//
+// float32 -- plain FMAs from shared memory (wgmma has no full-float32
+// path, and the float32 checks hold the kernel at 2e-5): one block of 256
+// threads per (64-query tile, head, batch); Q, one 64-key tile of K and of
+// V, and the 64 x 64 score tile sit in shared memory (rows padded by one
+// word against bank conflicts); each thread computes a 4 x 4 patch of scores
+// and owns 4 rows x d/16 columns of the output in registers.  The masking,
+// tile skipping and fixed-order reductions are as above.  No full-size
+// model serves float32 on the card.
 //
 // The launch goes on the caller's stream, allocates nothing and returns
-// cudaGetLastError(), so a refused launch reaches the caller.
+// cudaGetLastError() (or minus the CUresult of a refused tensor map), so a
+// refused launch reaches the caller.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <initializer_list>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;           // query rows per block
 constexpr int kBK = 64;           // keys per tile
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
+// (`done`, one per kernel, holds a bit per device) rather than on every
+// launch (prefill launches once per layer).  Devices past the 64th are set
+// on every launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ------------------------------------------------------------------------
+// float32: plain FMAs from shared memory (wgmma has no full-float32 path)
+namespace f32 {
+
 constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 score patch each
 constexpr int kPS = kBK + 1;      // padded score-tile row
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // xor butterflies: every lane ends with the same bits
 __device__ __forceinline__ float warp_sum(float x) {
@@ -83,15 +140,17 @@ size_t smem_bytes(int d) {
 }
 
 // DCH: output columns per thread, d <= 16 * DCH
-template <typename T, int DCH>
+template <int DCH>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int rep,
-                       int S, int d, int causal, int window, float scale,
-                       int64_t q_sb, int64_t q_sh, int64_t q_ss,
-                       int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                       int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                       int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int rep, int S, int d,
+                           int causal, int window, float scale,
+                           int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                           int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                           int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                           int64_t o_sb, int64_t o_sh, int64_t o_ss) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* qs = smem;                      // [kBQ][dp]
@@ -111,14 +170,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const T* qp = q + b * q_sb + h * q_sh;
-  const T* kp = k + b * k_sb + g * k_sh;
-  const T* vp = v + b * v_sb + g * v_sh;
+  const float* qp = q + b * q_sb + h * q_sh;
+  const float* kp = k + b * k_sb + g * k_sh;
+  const float* vp = v + b * v_sb + g * v_sh;
 
   for (int i = tid; i < kBQ * d; i += kThreads) {
     const int r = i / d, c = i % d;
     const int qpos = q0 + r;
-    qs[r * dp + c] = qpos < S ? to_f(qp[qpos * q_ss + c]) : 0.f;
+    qs[r * dp + c] = qpos < S ? qp[qpos * q_ss + c] : 0.f;
   }
   if (tid < kBQ) {
     row_m[tid] = -INFINITY;
@@ -131,7 +190,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DCH; ++j) o[i][j] = 0.f;
 
-  // key tiles that hold an unmasked key for some row of this query tile
   const int kv_end = causal ? min(S, q0 + kBQ) : S;
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   kv_begin -= kv_begin % kBK;
@@ -142,8 +200,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / d, c = i % d;
       const int kpos = k0 + r;
       const bool ok = kpos < S;
-      ks[r * dp + c] = ok ? to_f(kp[kpos * k_ss + c]) : 0.f;
-      vs[r * d + c] = ok ? to_f(vp[kpos * v_ss + c]) : 0.f;
+      ks[r * dp + c] = ok ? kp[kpos * k_ss + c] : 0.f;
+      vs[r * d + c] = ok ? vp[kpos * v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -226,7 +284,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* op = out + b * o_sb + h * o_sh;
+  float* op = out + b * o_sb + h * o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -236,63 +294,495 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DCH; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) store(op + qpos * o_ss + c, o[i][j] * inv);
+      if (c < d) op[qpos * o_ss + c] = o[i][j] * inv;
     }
   }
 }
 
-// Raises an instantiation's dynamic shared-memory limit to what its widest
-// head (d = 16 * DCH) needs, once per device rather than on every launch
-// (prefill launches once per layer).  Devices past the 64th are set on
-// every launch.
-template <typename T, int DCH>
-cudaError_t allow_smem() {
-  static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, DCH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem_bytes(16 * DCH)));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
-template <typename T, int DCH>
+template <int DCH>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int rep, int S, int d, int causal, int window, float scale,
            const int64_t* st, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(d);
-  const cudaError_t err = allow_smem<T, DCH>();
+  static std::atomic<uint64_t> done{0};
+  auto kernel = flash_attention_f32_kernel<DCH>;
+  const cudaError_t err = allow_smem(kernel, int(smem_bytes(16 * DCH)), done);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, DCH><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), rep, S, d, causal,
-      window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+  kernel<<<grid, kThreads, smem_bytes(d), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), rep, S, d,
+      causal, window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11]);
   return 0;
 }
 
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
                int H, int rep, int S, int d, int causal, int window,
                float scale, const int64_t* st, cudaStream_t s) {
-  if (d <= 32) return launch<T, 2>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
-  if (d <= 64) return launch<T, 4>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
-  if (d <= 128) return launch<T, 8>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
-  if (d <= 256) return launch<T, 16>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
+  if (d <= 32) return launch<2>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
+  if (d <= 64) return launch<4>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
+  if (d <= 128) return launch<8>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
+  if (d <= 256) return launch<16>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
   return int(cudaErrorInvalidValue);
 }
+
+}  // namespace f32
+
+// ------------------------------------------------------------------------
+// bfloat16: wgmma on TMA-fed tiles
+namespace tc {
+
+constexpr int kPanel = 64;                // bf16 columns in a 128-byte row
+constexpr int kPanelBytes = 64 * 128;     // 64 rows of one 64-column panel
+constexpr int kConsumers = 128;           // one warpgroup
+constexpr int kThreads = kConsumers + 32; // and the producer warp
+
+// DP: the padded head dim (64, 128 or 256); a Q, K or V tile is DP / 64
+// panels of 64 rows x 128 bytes, each stored with the 128-byte swizzle
+template <int DP>
+struct Shape {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kStages = DP == 64 ? 3 : 2;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  // Q, then stage s's K at tile 1 + 2s and V at 2 + 2s, then the barriers
+  static constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kMinBlocks = DP == 256 ? 1 : 2;
+};
+
+// a shared-memory matrix descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// pins registers in place around the asynchronous products: the compiler
+// may not move their reads or writes across this point
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);    // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, smem) . B (16 x 64, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem,
+// MN-major: read transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128, smem,
+// MN-major: read transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, f32) += A (64 x 16, bf16 registers) . B (16 x 256, smem,
+// MN-major: read transposed)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DP == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (DP == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, Shape<DP>::kMinBlocks)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ out, int H, int rep,
+                          int S, int d, int causal, int window,
+                          float scale_log2,
+                          int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+  using C = Shape<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + C::kStages;
+
+  // blocks start in index order: the last (heaviest, under the causal
+  // mask) query tile of every head first, then the next-to-last, ...
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int q0 = (n_q - 1 - int(blockIdx.x) / H) * kBQ;
+  const int h = int(blockIdx.x) % H;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // key tiles that hold an unmasked key for some row of this query tile
+  const int kv_end = causal ? min(S, q0 + kBQ) : S;
+  int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  kv_begin -= kv_begin % kBK;
+  const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // the producer: one lane keeps the ring full
+    if (lane == 0) {
+      const int g = h / rep;
+      hopper::mbar_expect_tx(q_full, C::kTileBytes);
+      for (int p = 0; p < C::kPanels; ++p)
+        hopper::tma_load_4d(smem + p * kPanelBytes, &tq, q_full, p * kPanel,
+                            q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % C::kStages;
+        if (t >= C::kStages)              // tile t - kStages released it
+          hopper::mbar_wait(&empty[s], ((t / C::kStages) - 1) & 1);
+        unsigned char* ks = smem + (1 + 2 * s) * C::kTileBytes;
+        unsigned char* vs = ks + C::kTileBytes;
+        const int k0 = kv_begin + t * kBK;
+        hopper::mbar_expect_tx(&full[s], 2 * C::kTileBytes);
+        for (int p = 0; p < C::kPanels; ++p) {
+          hopper::tma_load_4d(ks + p * kPanelBytes, &tk, &full[s], p * kPanel,
+                              k0, g, b);
+          hopper::tma_load_4d(vs + p * kPanelBytes, &tv, &full[s], p * kPanel,
+                              k0, g, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp w holds rows 16w .. 16w + 15 of the tile;
+  // a lane holds rows row0 and row0 + 8 (i = 0, 1) and, in each 8-column
+  // group j, columns 8j + 2 * (lane % 4) + {0, 1}: fragment x = 4j + 2i + c
+  const int t4 = lane & 3;
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  const uint32_t q_addr = hopper::smem_u32(smem);
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % C::kStages;
+    const int k0 = kv_begin + t * kBK;
+    const uint32_t k_addr = q_addr + (1 + 2 * s) * C::kTileBytes;
+    const uint32_t v_addr = k_addr + C::kTileBytes;
+    hopper::mbar_wait(&full[s], (t / C::kStages) & 1);
+
+    // S = Q . K^T, 16 head columns per instruction
+    float sc[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = 0.f;
+    pin(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+      wgmma_ss_n64(sc, sw128_desc(q_addr + off, 16, 1024),
+                   sw128_desc(k_addr + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sc);
+
+    // mask, then the online softmax on the fragments
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1;
+      const int qpos = row0 + 8 * i;
+      const int kpos = k0 + 8 * (x >> 2) + 2 * t4 + (x & 1);
+      const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+                      (window <= 0 || qpos - kpos < window);
+      sc[x] = ok ? sc[x] * scale_log2 : -INFINITY;
+      mx[i] = fmaxf(mx[i], sc[x]);
+    }
+    float base[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      // no visible key so far: p = exp2(-inf) = 0 and the carry stays
+      base[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = m_new == -INFINITY ? 1.f : exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      sc[x] = exp2f(sc[x] - base[(x >> 1) & 1]);
+      sum[(x >> 1) & 1] += sc[x];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l_run[i] = l_run[i] * corr[i] + sum[i];
+    }
+
+    // P in bf16: keys 16kk .. 16kk + 15 are fragments 8kk .. 8kk + 7, which
+    // pair up as the four registers of the product's A fragment
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    // the carry rescaled to this tile's max
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) o[x] *= corr[(x >> 1) & 1];
+    pin(o);
+    pin(pa);
+
+    // O += P . V, 16 keys per instruction; V's tile is MN-major: 8-key row
+    // groups 1024 bytes apart, 64-column panels one panel apart
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_pv<DP>(o, pa[kk], sw128_desc(v_addr + kk * 16 * 128, kPanelBytes,
+                                         1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = 1.f / fmaxf(l_run[i], 1e-30f);
+  __nv_bfloat16* op = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int x = 0; x < DP / 2; x += 2) {
+    const int i = (x >> 1) & 1;
+    const int qpos = row0 + 8 * i;
+    const int col = 8 * (x >> 2) + 2 * t4;
+    if (qpos < S && col < d)
+      *reinterpret_cast<__nv_bfloat162*>(op + qpos * o_ss + col) =
+          __floats2bfloat162_rn(o[x] * inv[i], o[x + 1] * inv[i]);
+  }
+}
+
+// a 4-d map over (d, S, heads, B) of a bf16 tensor with the given element
+// strides; 64 x 64 boxes with the 128-byte swizzle, zeros outside
+int encode(CUtensorMap* map, const void* base, int d, int S, int heads, int B,
+           int64_t sb, int64_t sh, int64_t ss) {
+  hopper::EncodeTiledFn fn = hopper::encode_tiled();
+  if (fn == nullptr) return -int(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(S), cuuint64_t(heads),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {kPanel, kBQ, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -int(r);
+}
+
+template <int DP>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           void* out, int B, int H, int rep, int S, int d, int causal,
+           int window, float scale_log2, const int64_t* ost,
+           cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
+  auto kernel = flash_attention_tc_kernel<DP>;
+  const cudaError_t err = allow_smem(kernel, Shape<DP>::kSmem, done);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(((S + kBQ - 1) / kBQ) * H, 1, B);
+  kernel<<<grid, kThreads, Shape<DP>::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, rep, S, d, causal,
+      window, scale_log2, ost[0], ost[1], ost[2]);
+  return 0;
+}
+
+int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
+               int H, int KV, int S, int d, int causal, int window,
+               float scale, const int64_t* st, cudaStream_t s) {
+  // TMA reads 16-byte-aligned bases and strides (the wrapper checks first)
+  for (const void* p : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return int(cudaErrorInvalidValue);
+  for (int i = 0; i < 9; ++i)
+    if (st[i] % 8) return int(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, d, S, H, B, st[0], st[1], st[2]);
+  if (err == 0) err = encode(&tk, k, d, S, KV, B, st[3], st[4], st[5]);
+  if (err == 0) err = encode(&tv, v, d, S, KV, B, st[6], st[7], st[8]);
+  if (err != 0) return err;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int rep = H / KV;
+  if (d <= 64) return launch<64>(tq, tk, tv, out, B, H, rep, S, d, causal, window, scale_log2, st + 9, s);
+  if (d <= 128) return launch<128>(tq, tk, tv, out, B, H, rep, S, d, causal, window, scale_log2, st + 9, s);
+  if (d <= 256) return launch<256>(tq, tk, tv, out, B, H, rep, S, d, causal, window, scale_log2, st + 9, s);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
 
 }  // namespace
 
 // dtype: 1 = float32, 2 = bfloat16 (tile_matmul's codes).  Strides are in
 // elements, (batch, head, position) for q, k, v and out in that order; the
-// head dimension is contiguous in all four.  Returns a cudaError_t as int:
-// 0 when the launch was accepted.
+// head dimension is contiguous in all four.  Returns 0 when the launch was
+// accepted, a cudaError_t as a positive int, or minus the CUresult of a
+// tensor map the driver refused.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
     int H, int KV, int S, int d, int causal, int window, int64_t q_sb,
@@ -308,10 +798,11 @@ extern "C" int flash_attention_launch(
   int err;
   switch (dtype) {
     case 1:
-      err = dispatch_d<float>(q, k, v, out, B, H, H / KV, S, d, causal, window, scale, st, s);
+      err = f32::dispatch_d(q, k, v, out, B, H, H / KV, S, d, causal, window, scale, st, s);
       break;
     case 2:
-      err = dispatch_d<__nv_bfloat16>(q, k, v, out, B, H, H / KV, S, d, causal, window, scale, st, s);
+      if (d % 8 != 0) return int(cudaErrorInvalidValue);
+      err = tc::dispatch_d(q, k, v, out, B, H, KV, S, d, causal, window, scale, st, s);
       break;
     default:
       return int(cudaErrorInvalidValue);

@@ -1,10 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  At
-first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/kernels/`` at the root of the checkout, named by a hash of
-the source and the flags, so an unchanged source is never rebuilt; the
-library is then loaded with :mod:`ctypes`.  A failed build raises
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface; the
+sources share the headers ``csrc/*.cuh``.  At first use it is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
+at the root of the checkout, named by a hash of the source, every header
+and the flags, so an unchanged source is never rebuilt and an edited
+header rebuilds every kernel; the library is then loaded with
+:mod:`ctypes`.  A failed build raises
 :class:`BuildError` carrying ``nvcc``'s output — there is no fallback.
 
 Every kernel wrapper owns a :class:`LaunchCounter` and adds one to it where
@@ -25,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["BUILD_DIR", "BuildError", "LaunchCounter", "build", "load",
-           "library_path"]
+           "library_path", "require_aligned"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: ``<checkout>/build/kernels`` (listed in .gitignore)
@@ -56,6 +58,25 @@ class LaunchCounter:
             self.count = 0
 
 
+def require_aligned(name: str, t, dims, copy: str, align: int = 16) -> None:
+    """Raise ``ValueError`` unless ``t``'s base address and its strides
+    along ``dims`` (``{dim: what}``) are multiples of ``align`` bytes, as
+    ``copy`` (a TMA or bulk copy reading the tensor in place; nothing is
+    ever copied to fix it) needs."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} starts at an address that is not a multiple "
+                         f"of {align} bytes; {copy} reads it in place and "
+                         f"needs that alignment (the wrapper copies nothing)")
+    item = t.element_size()
+    for dim, what in dims.items():
+        if (t.stride(dim) * item) % align:
+            raise ValueError(
+                f"{name}'s {what} stride of {t.stride(dim)} elements "
+                f"({t.stride(dim) * item} bytes) is not a multiple of {align} "
+                f"bytes; {copy} reads it in place and needs that alignment "
+                f"(the wrapper copies nothing)")
+
+
 def nvcc_path() -> str:
     """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the CUDA
     toolkit's default location."""
@@ -74,9 +95,13 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: keyed on a
-    hash of the source text and the compiler flags."""
+    hash of the source text, of every ``csrc/*.cuh`` header (name and
+    text; a source may include any of them) and of the compiler flags."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

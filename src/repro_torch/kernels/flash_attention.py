@@ -10,10 +10,15 @@ the kernel cannot be built or launched); on CPU tensors it runs the plain
 version, :func:`~repro_torch.kernels.ref.flash_attention_ref`.  There is no
 mode switch and no fallback between the two.
 
-Only what prefill calls is taken: the query and key lengths are equal and
-the queries start at position 0.  ``layers._chunked_attn``'s ``q_offset``
-and ``Sq != Sk`` (a prefill that continues a cache) raise
-``NotImplementedError`` (ROADMAP Queue B item 3).
+bfloat16 runs on the tensor cores, its tiles fed by TMA straight from the
+tensors as they are: their base addresses and (batch, head, position)
+strides must be multiples of 16 bytes, and the wrapper raises, with the
+reason, where they are not (it never copies).  float32 runs a plain
+kernel of FMAs from shared memory.  Only what prefill calls is taken: the
+query and key lengths are equal and the queries start at position 0.
+``layers._chunked_attn``'s ``q_offset`` and ``Sq != Sk`` (a prefill that
+continues a cache) raise ``NotImplementedError`` (ROADMAP Queue B item
+3).
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` and the body of ``repro/models/layers.py::_chunked_attn``
@@ -35,7 +40,8 @@ __all__ = ["MAX_HEAD_DIM", "flash_attention", "launches"]
 #: launches of the CUDA kernel (CPU calls do not count)
 launches = cuda_lib.LaunchCounter("flash_attention")
 
-#: float32 Q, K and V tiles of 64 rows must fit the 227 KB of shared memory
+#: float32 Q, K and V tiles of 64 rows must fit the 227 KB of shared memory,
+#: and a bfloat16 head is at most four 64-column panels
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
 _fn = None
@@ -90,6 +96,17 @@ def _check(q, k, v, window, q_offset):
     return B, H, KV, S, d
 
 
+def _check_tma(q, k, v):
+    """The bfloat16 kernel's TMA loads read q, k and v in place."""
+    if q.shape[-1] % 8:
+        raise ValueError(f"head dim {q.shape[-1]} is not a multiple of 8: the "
+                         f"bfloat16 kernel's TMA rows are whole 16-byte units")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda_lib.require_aligned(name, t, {0: "batch", 1: "head",
+                                           2: "position"},
+                                 "the bfloat16 kernel's TMA load")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
@@ -104,12 +121,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors are on {q.device} but the current device "
                          f"is cuda:{torch.cuda.current_device()}")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     fn = _launcher()
     out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), B, H, KV, S, d, int(bool(causal)), int(window),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: the driver refused a TMA tensor "
+                           f"map (CUresult {-err}; B={B}, H={H}, KV={KV}, "
+                           f"S={S}, d={d})")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {err} (B={B}, H={H}, KV={KV}, S={S}, "

@@ -177,3 +177,190 @@ def test_cpu_calls_do_not_count_as_launches():
     flash_attention(q, q, q)
     decode_attention(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 2)
     assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' schedules, emulated in plain torch
+#
+# The bfloat16 prefill kernel rounds p to bfloat16 before p . V on the
+# tensor cores (the reference's layers._chunked_attn does so too), which the
+# plain version does not: each p_j carries a relative error of at most
+# u = 2**-8, so the output moves by at most u * sum_j p_j |v_j| / l, u times
+# the attention of |v| (tests/test_torch_cuda.py and chip_smoke.py hold the
+# kernel to that limit on the card).
+FLASH_P_ROUND = 2.0 ** -8
+
+
+def _emulate_tc_prefill(q, k, v, *, causal, window, drop_diagonal=False,
+                        bk=64):
+    """The bfloat16 prefill kernel's rounding points: bf16 q . k^T summed in
+    float32, a running max per 64-key tile, p rounded to bf16 per tile for
+    p . V with float32 sums, l summed from the float32 p, the carry
+    rescaled at each tile.  Returns float32 (B, H, S, d)."""
+    B, H, S, d = q.shape
+    rep = H // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s_all = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / np.sqrt(d)
+    pos = torch.arange(S)
+    mask = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    if drop_diagonal:
+        mask &= pos[:, None] != pos[None, :]
+    m = torch.full((B, H, S, 1), -np.inf)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, d)
+    for k0 in range(0, S, bk):
+        s = s_all[..., k0:k0 + bk].masked_fill(~mask[:, k0:k0 + bk], -np.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        base = torch.where(torch.isfinite(m_new), m_new, torch.zeros(()))
+        corr = torch.where(torch.isfinite(m_new), torch.exp(m - base),
+                           torch.ones(()))
+        p = torch.exp(s - base)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def _prefill_limit(q, k, v, ref, *, causal, window):
+    """float32 sums' tolerance plus the derived allowance for rounding p."""
+    absv = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                               causal=causal, window=window)
+    return TOL["atol"] + TOL["rtol"] * ref.abs() + FLASH_P_ROUND * absv
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("S,d,causal,window", [(200, 32, True, 0),
+                                               (130, 64, True, 48),
+                                               (96, 64, False, 0)])
+def test_prefill_kernel_rounding_holds_the_derived_limit(seed, S, d, causal,
+                                                         window):
+    rng = np.random.default_rng(seed)
+    q = _t(_rand(rng, 1, 4, S, d)).bfloat16()
+    k = _t(_rand(rng, 1, 2, S, d)).bfloat16()
+    v = _t(_rand(rng, 1, 2, S, d)).bfloat16()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                              window=window)
+    got = _emulate_tc_prefill(q, k, v, causal=causal, window=window)
+    limit = _prefill_limit(q, k, v, ref, causal=causal, window=window)
+    diff = (got - ref).abs()
+    assert torch.isfinite(got).all()
+    assert (diff <= limit).all(), (diff / limit).max().item()
+    # the rounding is real: the emulation is not the plain version's bits
+    assert diff.max().item() > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prefill_emulation_with_a_dropped_diagonal_key_fails_the_limit(seed):
+    rng = np.random.default_rng(seed)
+    q = _t(_rand(rng, 1, 4, 200, 32)).bfloat16()
+    k = _t(_rand(rng, 1, 2, 200, 32)).bfloat16()
+    v = _t(_rand(rng, 1, 2, 200, 32)).bfloat16()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    got = _emulate_tc_prefill(q, k, v, causal=True, window=0,
+                              drop_diagonal=True)
+    limit = _prefill_limit(q, k, v, ref, causal=True, window=0)
+    assert ((got - ref).abs() / limit).max().item() > 10
+
+
+def test_decode_splits_cover_every_valid_key_once():
+    """decode_splits cuts [lo, length) into ranges that, taken as the kernel
+    takes them, cover every valid key exactly once."""
+    from repro_torch.kernels.decode_attention import MAX_SPLITS, decode_splits
+
+    for window in (0, 64):
+        for kv in range(1, 33):
+            for length in range(0, 4097):
+                lo, splits, per = decode_splits(length, window, kv, 128)
+                assert lo == (max(0, length - window) if window else 0)
+                assert 1 <= splits <= MAX_SPLITS and per >= 0
+                covered, nxt = 0, lo
+                for s in range(splits):
+                    ks = min(lo + s * per, length)
+                    ke = min(ks + per, length)
+                    assert ks == nxt or ks == ke == length
+                    covered += ke - ks
+                    nxt = ke
+                assert nxt == length and covered == length - lo
+
+
+@pytest.mark.parametrize("length,window,KV,d", [(545, 0, 8, 128),
+                                                (3, 0, 8, 128),
+                                                (1000, 64, 32, 112),
+                                                (0, 0, 2, 32)])
+def test_decode_split_plan_does_not_depend_on_the_batch(length, window, KV,
+                                                        d):
+    """The cut takes no batch size and no tensor, so a lane's split, and
+    with it its bits, is the same whoever else is in the batch; and the
+    same integers give the same cut."""
+    import inspect
+
+    from repro_torch.kernels.decode_attention import decode_splits
+
+    assert list(inspect.signature(decode_splits).parameters) == [
+        "length", "window", "kv_heads", "head_dim"]
+    assert len({decode_splits(length, window, KV, d) for _ in range(3)}) == 1
+    lo, splits, per = decode_splits(length, window, KV, d)
+    assert splits == min(16, max(1, -(-256 // KV)))
+
+
+def _emulate_split_decode(q, k, v, length, window):
+    """The decode kernel's schedule in float32: per split of
+    decode_splits, an (m, l, acc) per head (m = -inf, l = 0, acc = 0 for
+    an empty range), then the merge in split order with weights
+    e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30)."""
+    from repro_torch.kernels.decode_attention import decode_splits
+
+    B, H, d = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    lo, splits, per = decode_splits(length, window, KV, d)
+    qh = q.float().reshape(B, KV, rep, d)
+    parts = []
+    for s in range(splits):
+        ks = min(lo + s * per, length)
+        ke = min(ks + per, length)
+        if ke == ks:
+            parts.append((torch.full((B, KV, rep), -np.inf),
+                          torch.zeros(B, KV, rep),
+                          torch.zeros(B, KV, rep, d)))
+            continue
+        sc = torch.einsum("bgrd,bsgd->bgrs", qh, k[:, ks:ke].float())
+        sc = sc / np.sqrt(d)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None])
+        acc = torch.einsum("bgrs,bsgd->bgrd", p, v[:, ks:ke].float())
+        parts.append((m, p.sum(dim=-1), acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    f = [torch.where(torch.isfinite(m), torch.exp(m - mx), torch.zeros(()))
+         for m, _, _ in parts]
+    total = sum(l * fs for (_, l, _), fs in zip(parts, f))
+    inv = 1.0 / total.clamp_min(1e-30)
+    out = sum(acc * (fs * inv)[..., None] for (_, _, acc), fs in zip(parts, f))
+    return out.reshape(B, H, d)
+
+
+@pytest.mark.parametrize("S,length,window,H,KV,d", [
+    (545, 545, 0, 40, 8, 128),       # sixteen splits of 35 keys
+    (545, 3, 0, 40, 8, 128),         # fewer keys than splits: 13 empty
+    (545, 0, 0, 40, 8, 128),         # no key at all: zeros
+    (1033, 1000, 64, 40, 8, 128),    # a window
+    (300, 300, 100, 16, 8, 256),
+    (545, 545, 0, 32, 32, 112),      # zamba2's shared block
+    (200, 137, 0, 4, 1, 32),         # one KV head: sixteen splits
+])
+def test_decode_split_merge_emulation_matches_plain_version(S, length, window,
+                                                            H, KV, d):
+    rng = np.random.default_rng(5)
+    q = _t(_rand(rng, 2, H, d))
+    k, v = _t(_rand(rng, 2, S, KV, d)), _t(_rand(rng, 2, S, KV, d))
+    got = _emulate_split_decode(q, k, v, length, window)
+    assert not torch.isnan(got).any()
+    expect = decode_attention_ref(q, k, v, length, window=window)
+    np.testing.assert_allclose(got.numpy(), expect.numpy(), **TOL)
+    if length == 0:
+        assert not got.any()

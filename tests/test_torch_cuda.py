@@ -105,16 +105,38 @@ def _randn(rng, shape, dtype, device):
     return torch.from_numpy(rng.standard_normal(shape)).to(device, dtype)
 
 
-# the attention kernels keep p in float32 for p . V, as the plain versions
-# and the Pallas kernels do (the reference's layers.decode_attention rounds
-# p to the cache's type first, so bfloat16 is held against the plain
-# versions, not against it): float32 meets tests/test_kernels.py's kernel
-# tolerance.  bfloat16 outputs round once from float32 sums that differ only
-# in order, so the two land at most one unit in the last place apart:
-# 2**-7 |x| < 1e-2 |x|, with atol for the float32 sums' ~1e-6 near zero
-# (chip_smoke.py's ATTN_TOL)
+# the decode kernel keeps p in float32 for p . V, as the plain versions and
+# the Pallas kernels do (the reference's layers.decode_attention rounds p to
+# the cache's type first, so bfloat16 is held against the plain versions,
+# not against it): float32 meets tests/test_kernels.py's kernel tolerance.
+# bfloat16 outputs round once from float32 sums that differ only in order,
+# so the two land at most one unit in the last place apart: 2**-7 |x| <
+# 1e-2 |x|, with atol for the float32 sums' ~1e-6 near zero (chip_smoke.py's
+# ATTN_TOL).  The float32 prefill kernel is held to the same.
 ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
             "bfloat16": dict(rtol=1e-2, atol=1e-4)}
+# the bfloat16 prefill kernel rounds p to bfloat16 for p . V on the tensor
+# cores (as the reference's layers._chunked_attn does): with each p_j off by
+# at most u = 2**-8 relative, the output moves by at most u * sum_j p_j |v_j|
+# / l, u times the attention of |v|, on top of ATTN_TOL's one ulp
+# (chip_smoke.py's FLASH_P_ROUND; planted faults fail it, see
+# attention_faults.py)
+FLASH_P_ROUND = 2.0 ** -8
+
+
+def _assert_flash_close(got, q, k, v, *, causal, window):
+    """The prefill kernel against its plain version: ATTN_TOL, plus the
+    allowance for rounding p in bfloat16."""
+    expect = flash_attention_ref(q, k, v, causal=causal,
+                                 window=window).float()
+    t = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    limit = t["atol"] + t["rtol"] * expect.abs()
+    if q.dtype == torch.bfloat16:
+        limit = limit + FLASH_P_ROUND * flash_attention_ref(
+            q.float(), k.float(), v.float().abs(), causal=causal,
+            window=window)
+    diff = (got.float() - expect).abs()
+    assert (diff <= limit).all(), (diff / limit).max().item()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -126,6 +148,8 @@ ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
     (1, 16, 8, 300, 256, 300, 100),     # gemma3's head dim
     (1, 40, 8, 545, 128, 0, 0),         # empty cache: zeros
     (1, 32, 32, 545, 112, 545, 0),      # zamba2's shared block: MHA, d = 112
+    (1, 40, 8, 545, 128, 3, 0),         # fewer keys than splits
+    (3, 8, 1, 100, 64, 5, 0),           # fewer keys than splits, B = 3
 ])
 def test_decode_attention_kernel_matches_plain_version(
         cuda, dtype, B, H, KV, S, d, length, window):
@@ -164,19 +188,91 @@ def test_flash_attention_kernel_matches_plain_version(
     q = _randn(rng, (B, H, S, d), dt, cuda)
     k = _randn(rng, (B, KV, S, d), dt, cuda)
     v = _randn(rng, (B, KV, S, d), dt, cuda)
-    expect = flash_attention_ref(q, k, v, causal=causal, window=window)
     before = launch_counts()["flash_attention"]
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == before + 1
     assert got.shape == (B, H, S, d) and got.dtype == dt
-    torch.testing.assert_close(got.float(), expect.float(), **ATTN_TOL[dtype])
+    _assert_flash_close(got, q, k, v, causal=causal, window=window)
+    # no atomics: the same bits again
+    assert torch.equal(flash_attention(q, k, v, causal=causal,
+                                       window=window), got)
     # strided views of (B, S, heads, d) projections, as prefill passes them
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)
     kt = k.transpose(1, 2).contiguous().transpose(1, 2)
     vt = v.transpose(1, 2).contiguous().transpose(1, 2)
     assert torch.equal(flash_attention(qt, kt, vt, causal=causal,
                                        window=window), got)
+
+
+def _needles(rng, B, H, KV, S, d, offset, dtype, device):
+    """Inputs where, in every row i >= offset, key i - offset carries
+    nearly all the weight (chip_smoke.py's needle_arrays): the query heads
+    of a KV group share a row u_i and key j is 2 u_{j + offset}."""
+    u = rng.standard_normal((B, KV, S + offset, d))
+    q = np.repeat(u[:, :, :S], H // KV, axis=1)
+    v = rng.standard_normal((B, KV, S, d))
+    return [torch.from_numpy(x).to(device, dtype)
+            for x in (q, 2.0 * u[:, :, offset:], v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window,offset", [
+    (512, 0, 0),        # the needle on the causal diagonal
+    (512, 64, 63),      # on the window's oldest key
+    (500, 0, 0),        # on the diagonal, the ragged last key among them
+])
+def test_flash_attention_holds_needles_on_masked_edge_keys(cuda, dtype, S,
+                                                           window, offset):
+    """A key on a mask's edge that carries a row's weight: dropping it
+    moves the output by about |v|, far above the bfloat16 limit."""
+    q, k, v = _needles(np.random.default_rng(21), 1, 40, 8, S, 128, offset,
+                       getattr(torch, dtype), cuda)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, q, k, v, causal=True, window=window)
+    # the needle dominates: its row's output is its own value row
+    rows = torch.arange(offset, S, device=cuda)
+    near = (got[0, 0, rows].float() - v[0, 0, rows - offset].float()).abs()
+    assert near.max().item() < 0.25
+
+
+def test_flash_attention_head_dim_112_reads_no_column_past_d(cuda):
+    """zamba2's d = 112 runs as 128: the tensor map's d extent is 112, so TMA
+    fills columns 112..127 with zeros; NaN stored there in a wider buffer
+    must not reach the output."""
+    rng = np.random.default_rng(22)
+    wide = [_randn(rng, (1, 32, 512, 128), torch.bfloat16, cuda)
+            for _ in range(3)]
+    for w in wide:
+        w[..., 112:] = float("nan")
+    q, k, v = (w[..., :112] for w in wide)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=True))
+    _assert_flash_close(got, q, k, v, causal=True, window=0)
+
+
+def test_attention_wrappers_refuse_misaligned_strides(cuda):
+    """TMA and bulk copies read the tensors in place: a stride or a base
+    that is not a multiple of 16 bytes is refused with the reason, never
+    copied."""
+    rng = np.random.default_rng(23)
+    q = _randn(rng, (1, 4, 64, 64 + 4), torch.bfloat16, cuda)[..., :64]
+    kv = _randn(rng, (1, 2, 64, 64), torch.bfloat16, cuda)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="position stride of 68 elements"):
+        flash_attention(q, kv, kv)
+    off = _randn(rng, (1, 2, 64, 64 + 1), torch.bfloat16, cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q.contiguous(), off, off)
+    cache = _randn(rng, (1, 100, 2, 64 + 4), torch.bfloat16, cuda)[..., :64]
+    qd = _randn(rng, (1, 4, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head stride of 68 elements"):
+        decode_attention(qd, cache, cache, 10)
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -162,3 +162,26 @@ def test_launch_counter_loses_no_update_across_threads():
     assert counter.count == n_threads * per_thread
     counter.reset()
     assert counter.count == 0
+
+
+def test_library_path_changes_when_a_shared_header_changes(tmp_path,
+                                                           monkeypatch):
+    """A kernel is rebuilt when its source, any csrc/*.cuh header or the
+    flags change: each is folded into the library's name."""
+    monkeypatch.setattr(cuda_lib, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = cuda_lib.library_path("k")
+    assert cuda_lib.library_path("k") == first           # stable
+    (tmp_path / "h.cuh").write_text("// two\n")
+    edited = cuda_lib.library_path("k")
+    assert edited != first
+    (tmp_path / "g.cuh").write_text("// new\n")
+    added = cuda_lib.library_path("k")
+    assert added not in (first, edited)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// more\n')
+    source = cuda_lib.library_path("k")
+    assert source not in (first, edited, added)
+    monkeypatch.setattr(cuda_lib, "NVCC_FLAGS",
+                        cuda_lib.NVCC_FLAGS + ("-DX",))
+    assert cuda_lib.library_path("k") not in (first, edited, added, source)
