@@ -9,17 +9,21 @@ Phases, each printed as one JSON line:
 1. the card (also the raw ``nvidia-smi`` name and power limit line);
 2. the build of every kernel from ``src/repro_torch/kernels/csrc``, all
    ``nvcc`` processes at once, with each one's ptxas register, shared
-   memory and spill lines, and the count of tensor-core (``HGMMA``)
-   instructions in the flash attention library, which must not be 0;
+   memory and spill lines, and the count of the tensor-core instructions
+   the kernels built around the tensor cores depend on (``HGMMA`` in flash
+   attention, ``DMMA`` in the tile GEMM), neither of which may be 0;
 3. the kernel phase: each kernel against its plain PyTorch version on the
-   card at its main paths' shapes (the attention kernels in float32 and in
-   bfloat16, on the same inputs, at qwen3-14b's and at zamba2-7b's head
-   dims, each twice for the same bits; decode also with fewer keys than
-   splits, prefill also with needle inputs whose weight sits on one
-   masked-edge key; the SSD scan at zamba2-7b's and mamba2-2.7b's prefill,
-   ragged, batched and short, with inputs made as an SSM layer makes
-   them), with its time, the plain version's time, one PyTorch library
-   call's time where there is one and the least time the card could take;
+   card at its main paths' shapes, each twice for the same bits (the
+   float64 tile GEMM's ``C - A B^T`` and ``C - A B`` at 192^3, ragged and
+   at shallow K; the attention kernels in float32 and in bfloat16, on the
+   same inputs, at qwen3-14b's and at zamba2-7b's head dims; decode also
+   with fewer keys than splits, prefill also with needle inputs whose
+   weight sits on one masked-edge key; the SSD scan at zamba2-7b's and
+   mamba2-2.7b's prefill, ragged, batched (each row against its scan
+   alone), short, at 4,096 tokens and with a slow head's decay, with
+   inputs made as an SSM layer makes them), with its time, the plain
+   version's time, one PyTorch library call's time where there is one and
+   the least time the card could take;
 4. the Cholesky path: a float64 tiled Cholesky of ``random_spd(n, seed=0)``
    split into ``tile``-wide tiles, built with ``build_cholesky_graph`` and
    run by ``repro_torch.Session(4)`` under the ``hybrid`` and ``history``
@@ -112,7 +116,7 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 #: (higher orders are below float32's sums).  The limit is therefore
 #: ATTN_TOL's one-ulp bound plus FLASH_P_ROUND times that attention of |v|,
 #: element by element; it is proven against planted faults with needle
-#: inputs (attention_faults.py).
+#: inputs (kernel_faults.py).
 FLASH_P_ROUND = 2.0 ** -8
 #: the SSD scan against its plain version: the same float32 products
 #: summed in another order.  float32: tests/test_kernels.py's kernel
@@ -188,27 +192,39 @@ def card_phase() -> str:
     return line
 
 
+#: the tensor-core instruction each redesigned kernel depends on: its name
+#: in ``cuobjdump -sass`` (every listed word on one line) and, where the
+#: toolkit has no ``cuobjdump``, in the PTX of ``nvcc -ptx``
+TENSOR_CORE_OPS = {
+    "flash_attention": (("HGMMA",), ("wgmma.mma_async",)),
+    "tile_matmul": (("DMMA",), ("mma.sync", ".f64")),
+}
+
+
 def tensor_core_instructions(name: str) -> dict:
-    """How many ``HGMMA`` (wgmma) instructions the built library of
-    ``name`` holds: ``cuobjdump -sass`` where the toolkit has it, else
-    the ``wgmma.mma_async`` lines of the source's PTX (``nvcc -ptx``)."""
+    """How many of ``name``'s tensor-core instructions
+    (:data:`TENSOR_CORE_OPS`) its built library holds: ``cuobjdump -sass``
+    where the toolkit has it, else the matching lines of the source's PTX
+    (``nvcc -ptx``)."""
     from repro_torch.kernels import cuda_lib
 
+    sass_words, ptx_words = TENSOR_CORE_OPS[name]
     nvcc = Path(cuda_lib.nvcc_path())
     cuobjdump = nvcc.with_name("cuobjdump")
     if cuobjdump.exists():
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(cuda_lib.library_path(name))],
                               capture_output=True, text=True, check=True)
-        return {"tool": "cuobjdump -sass",
-                "count": sum("HGMMA" in ln for ln in sass.stdout.splitlines())}
-    ptx = subprocess.run(
-        [str(nvcc), "-gencode", "arch=compute_90a,code=compute_90a",
-         "-std=c++17", "-ptx", "-o", "-",
-         str(cuda_lib.CSRC / f"{name}.cu")],
-        capture_output=True, text=True, check=True)
-    return {"tool": "nvcc -ptx",
-            "count": ptx.stdout.count("wgmma.mma_async")}
+        lines, tool, words = sass.stdout.splitlines(), "cuobjdump -sass", sass_words
+    else:
+        ptx = subprocess.run(
+            [str(nvcc), "-gencode", "arch=compute_90a,code=compute_90a",
+             "-std=c++17", "-ptx", "-o", "-",
+             str(cuda_lib.CSRC / f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+        lines, tool, words = ptx.stdout.splitlines(), "nvcc -ptx", ptx_words
+    return {"tool": tool, "words": list(words),
+            "count": sum(all(w in ln for w in words) for ln in lines)}
 
 
 def build_phase() -> None:
@@ -221,19 +237,28 @@ def build_phase() -> None:
                     .read_text().splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]
              for name in KERNELS}
-    # the bfloat16 prefill kernel must run its products on the tensor cores
-    hgmma = tensor_core_instructions("flash_attention")
+    # the kernels designed around the tensor cores must run their products
+    # there: bfloat16 prefill on wgmma, the float64 GEMM on DMMA
+    found = {name: tensor_core_instructions(name) for name in TENSOR_CORE_OPS}
     emit({"phase": "build", "seconds": seconds,
           "wall_s": time.perf_counter() - t0,
-          "flash_attention_tensor_core_instructions": hgmma, "ptxas": ptxas})
-    check(hgmma["count"] > 0, "the flash attention library holds no wgmma "
-          f"instruction ({hgmma['tool']})")
+          "tensor_core_instructions": found, "ptxas": ptxas})
+    for name, hit in found.items():
+        check(hit["count"] > 0, f"the {name} library holds no "
+              f"{' '.join(hit['words'])} instruction ({hit['tool']})")
 
 
-def kernel_case(name, dtype, M, N, K, *, gemm_sub: bool, seed: int):
-    """One kernel-phase shape: compare, then time kernel / plain / library."""
+GEMM_NAMES = {"sub_t": "tile_gemm_sub", "sub_nn": "tile_gemm_nn_sub"}
+
+
+def kernel_case(name, dtype, M, N, K, *, mode: str, seed: int, timed=True):
+    """One tile-GEMM shape: compare (twice, for the same bits), then, if
+    ``timed``, time kernel / plain / library.  ``mode`` is ``"sub_t"`` (the
+    Cholesky trailing update ``C - A B^T``, in place), ``"sub_nn"`` (LU and
+    QR's ``C - A B``, in place) or ``"mm"`` (the Pallas kernel's ``A @
+    B``)."""
     from repro_torch.kernels.ref import tile_matmul_ref
-    from repro_torch.kernels.tile_matmul import tile_matmul
+    from repro_torch.kernels.tile_matmul import gemm_splits, tile_matmul
 
     rng = np.random.default_rng(seed)
 
@@ -242,19 +267,26 @@ def kernel_case(name, dtype, M, N, K, *, gemm_sub: bool, seed: int):
         return x.to(device="cuda", dtype=dtype)
 
     a = rand(M, K)
-    if gemm_sub:                        # the trailing update: C - A B^T
+    if mode == "sub_t":
         b, c = rand(N, K), rand(M, N)
         kw = dict(alpha=-1.0, beta=1.0, trans_b=True)
-    else:                               # the Pallas kernel's A @ B
+    elif mode == "sub_nn":
+        b, c = rand(K, N), rand(M, N)
+        kw = dict(alpha=-1.0, beta=1.0)
+    else:
         b, c = rand(K, N), None
         kw = dict()
     expect = tile_matmul_ref(a, b, c, **kw)
-    if gemm_sub:                        # in place, as the main path calls it
-        got = c.clone()
-        tile_matmul(a, b, got, out=got, **kw)
-    else:
-        got = tile_matmul(a, b)
+    runs = []
+    for _ in range(2):
+        if c is not None:               # in place, as the main path calls it
+            got = c.clone()
+            tile_matmul(a, b, got, out=got, **kw)
+        else:
+            got = tile_matmul(a, b)
+        runs.append(got)
     torch.cuda.synchronize()
+    got = runs[0]
     diff = (got.double() - expect.double()).abs()
     max_abs = diff.max().item()
     max_rel = max_abs / expect.double().abs().max().item()
@@ -266,29 +298,35 @@ def kernel_case(name, dtype, M, N, K, *, gemm_sub: bool, seed: int):
         ok = bool((diff <= t["atol"] + t["rtol"] * expect.double().abs()).all())
         tol = t
     check(ok, f"{name}: kernel vs plain version, max abs err {max_abs}")
-
-    if gemm_sub:
+    check(torch.equal(runs[0], runs[1]),
+          f"{name}: two launches on the same inputs differ")
+    row = {"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
+           "mode": mode, "M": M, "N": N, "K": K,
+           "splits_per": list(gemm_splits(M, N, K)), "max_abs_err": max_abs,
+           "max_rel_err": max_rel, "tol": tol}
+    if not timed:
+        emit(row)
+        return row
+    if c is not None:
         cw = c.clone()
         kern = lambda: tile_matmul(a, b, cw, out=cw, **kw)       # noqa: E731
         plain = lambda: tile_matmul_ref(a, b, cw, **kw)          # noqa: E731
-        lib = lambda: torch.addmm(cw, a, b.mT, alpha=-1)        # noqa: E731
+        bb = b.mT if mode == "sub_t" else b
+        lib = lambda: torch.addmm(cw, a, bb, alpha=-1)          # noqa: E731
     else:
         kern = lambda: tile_matmul(a, b)                         # noqa: E731
         plain = lambda: tile_matmul_ref(a, b)                    # noqa: E731
         lib = lambda: torch.mm(a, b)                             # noqa: E731
     item = a.element_size()
     # each input read once, the output written once
-    n_bytes = (M * K + K * N + (2 if gemm_sub else 1) * M * N) * item
-    flops = 2.0 * M * N * K + (2.0 * M * N if gemm_sub else 0.0)
+    n_bytes = (M * K + K * N + (2 if c is not None else 1) * M * N) * item
+    flops = 2.0 * M * N * K + (2.0 * M * N if c is not None else 0.0)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    row = {"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
-           "M": M, "N": N, "K": K, "max_abs_err": max_abs,
-           "max_rel_err": max_rel, "tol": tol,
-           "ms": device_ms(kern), "plain_ms": device_ms(plain),
-           "library_ms": device_ms(lib),
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    row.update({"ms": device_ms(kern), "plain_ms": device_ms(plain),
+                "library_ms": device_ms(lib),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     emit(row)
     return row
 
@@ -465,12 +503,14 @@ def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128,
     return row
 
 
-def ssd_inputs(B, T, H, N, P, chunk, seed):
+def ssd_inputs(B, T, H, N, P, chunk, seed, a=-1.0):
     """The SSD scan's float32 inputs made as an SSM layer makes them:
     silu'd x, B and C, step sizes softplus(N(0, 0.8)), about 0.75, and
-    a = -1 (the seed-0 model's a_log = 0), so cs falls to about -95 across
-    a 128-step chunk and exp(cs_i - cs_j) above the diagonal is inf in
-    float32; laid out and padded by the model's ``ssd_scan_inputs``."""
+    decay rate ``a``: -1 (the seed-0 model's a_log = 0) makes cs fall to
+    about -95 across a 128-step chunk, so exp(cs_i - cs_j) above the
+    diagonal is inf in float32 and nothing of a chunk's state outlives the
+    next chunk; a slow head's -0.02 carries the state across chunks.  Laid
+    out and padded by the model's ``ssd_scan_inputs``."""
     import torch.nn.functional as F
 
     from repro_torch.models.ssm import ssd_scan_inputs
@@ -484,20 +524,21 @@ def ssd_inputs(B, T, H, N, P, chunk, seed):
     xs = F.silu(rand((B, T, H, P)))
     dt = F.softplus(rand((B, T, H), 0.8))
     Bm, Cm = F.silu(rand((B, T, N))), F.silu(rand((B, T, N)))
-    a = -torch.ones(H, device="cuda")
-    return ssd_scan_inputs(xs, dt, a, Bm, Cm, chunk=chunk)
+    rate = torch.full((H,), a, device="cuda")
+    return ssd_scan_inputs(xs, dt, rate, Bm, Cm, chunk=chunk)
 
 
 def ssd_case(name, B, T, H, N, P, *, seed, chunk=128,
-             dtypes=(torch.float32,)):
+             dtypes=(torch.float32,), timed=True, a=-1.0):
     """One SSD-scan shape: in each type, compare y and the final state
     with the plain version, check that a second launch gives the same
-    bits, and time kernel and plain version.  No single PyTorch call
+    bits (and, at B > 1, that each batch row scanned alone does), and, if
+    ``timed``, time kernel and plain version.  No single PyTorch call
     computes the chunked scan, so there is no library time."""
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
 
-    xdt32, cs, bm32, cm32 = ssd_inputs(B, T, H, N, P, chunk, seed)
+    xdt32, cs, bm32, cm32 = ssd_inputs(B, T, H, N, P, chunk, seed, a)
     _, nc, L, _, _ = xdt32.shape
     errors = {}
     for dtype in dtypes:
@@ -511,6 +552,12 @@ def ssd_case(name, B, T, H, N, P, *, seed, chunk=128,
               f"{name} {key}: the kernel's output is not finite")
         check(torch.equal(y, y2) and torch.equal(st, st2),
               f"{name} {key}: two launches on the same inputs differ")
+        for b in range(B if B > 1 else 0):
+            # batch invariance: a row scanned alone gives the same bits
+            yb, sb = ssd_scan(*(t[b:b + 1].contiguous()
+                                for t in (xdt, cs, bm, cm)))
+            check(torch.equal(yb, y[b:b + 1]) and torch.equal(sb, st[b:b + 1]),
+                  f"{name} {key}: batch row {b} differs from its scan alone")
         shares = {}
         for what, got, want, t in (("y", y, ey, SSD_TOL[dtype]),
                                    ("state", st, es, SSD_TOL[torch.float32])):
@@ -522,11 +569,12 @@ def ssd_case(name, B, T, H, N, P, *, seed, chunk=128,
             check(share <= 1.0, f"{name} {key} {what}: kernel vs plain "
                   f"version, max abs err {diff.max().item()}, {share:.3g} of "
                   f"the tolerance")
-        errors[key] = {
-            **shares,
-            "ms": device_ms(lambda: ssd_scan(xdt, cs, bm, cm), reps=20),
-            "plain_ms": device_ms(lambda: ssd_scan_ref(xdt, cs, bm, cm),
-                                  reps=5)}
+        errors[key] = shares
+        if timed:
+            shares["ms"] = device_ms(lambda: ssd_scan(xdt, cs, bm, cm),
+                                     reps=20)
+            shares["plain_ms"] = device_ms(
+                lambda: ssd_scan_ref(xdt, cs, bm, cm), reps=5)
     first = errors[str(dtypes[0]).split(".")[-1]]
     item = torch.tensor([], dtype=dtypes[0]).element_size()
     # xdt read and y written, cs, B and C read, the final state written
@@ -541,7 +589,7 @@ def ssd_case(name, B, T, H, N, P, *, seed, chunk=128,
            "dtype": str(dtypes[0]).split(".")[-1], "B": B, "T": T, "nc": nc,
            "L": L, "H": H, "N": N, "P": P, "cs_min": cs.min().item(),
            "max_abs_err": first["y"]["max_abs_err"], "errors": errors,
-           "ms": first["ms"], "plain_ms": first["plain_ms"],
+           "ms": first.get("ms"), "plain_ms": first.get("plain_ms"),
            "library_ms": None, "bytes": n_bytes, "flops": flops,
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit(row)
@@ -1004,14 +1052,20 @@ def main() -> int:
     build_phase()
     t = args.tile
     main_case = kernel_case(f"tile_gemm_sub f64 {t}x{t}x{t}", torch.float64,
-                            t, t, t, gemm_sub=True, seed=0)
+                            t, t, t, mode="sub_t", seed=0)
+    kernel_case(f"tile_gemm_nn_sub f64 {t}x{t}x{t}", torch.float64, t, t, t,
+                mode="sub_nn", seed=21)
     kernel_case("tile_gemm_sub f64 ragged 200x136x72", torch.float64,
-                200, 136, 72, gemm_sub=True, seed=1)
+                200, 136, 72, mode="sub_t", seed=1)
+    # the DMMA fragments' edges: shallow and ragged K, tiles below a block
+    for (M, N, K, mode) in ((192, 192, 1, "sub_t"), (192, 192, 3, "sub_nn"),
+                            (200, 136, 17, "sub_nn"), (20, 9, 72, "sub_t")):
+        kernel_case(f"{GEMM_NAMES[mode]} f64 {M}x{N}x{K}", torch.float64,
+                    M, N, K, mode=mode, seed=22, timed=False)
     for dtype in (torch.float32, torch.bfloat16):
         for (M, K, N) in ((256, 256, 256), (512, 256, 128)):
             kernel_case(f"tile_matmul {str(dtype).split('.')[-1]} "
-                        f"{M}x{K}x{N}", dtype, M, N, K, gemm_sub=False,
-                        seed=2)
+                        f"{M}x{K}x{N}", dtype, M, N, K, mode="mm", seed=2)
     max_len = PROMPT + TOKENS + 1
     decode_main = decode_case(f"decode S={max_len} length={max_len}",
                               max_len, max_len, 0, seed=3)
@@ -1045,6 +1099,11 @@ def main() -> int:
     ssd_case(f"ssd zamba2 B=2 T={PROMPT}", 2, PROMPT, 112, 64, 64, seed=15)
     ssd_case("ssd zamba2 T=100 (one short chunk)", 1, 100, 112, 64, 64,
              seed=16)
+    ssd_case("ssd zamba2 T=4096", 1, 4096, 112, 64, 64, seed=23)
+    # a slow head's decay: the state carries across chunks, so a scan that
+    # loses it between chunks cannot pass
+    ssd_case(f"ssd zamba2 T={PROMPT} slow decay (a = -0.02)", 1, PROMPT, 112,
+             64, 64, seed=24, a=-0.02, timed=False)
 
     check(args.n % t == 0, f"n={args.n} is not a multiple of tile={t}")
     a = random_spd(args.n, seed=0, device="cuda")

@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Planted faults in the redesigned kernels, held to chip_smoke's limits.
+
+    python3 kernel_faults.py [--kernel flash_attention|tile_matmul|ssd_scan]
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc.
+For each fault a copy of ``src/`` and ``chip_smoke.py`` in a temporary
+directory gets the fault written into its kernel source (the checkout
+itself is never edited); a fresh process there builds that copy and runs
+chip_smoke's cases for the kernel, with every check recorded instead of
+raised.  It prints one JSON line per fault: for each case the largest share
+of the limit that the error used (above 1.0 fails) and how many checks
+failed.  The faults:
+
+* ``flash_attention`` (prefill; normal and needle inputs, float32 and
+  bfloat16): drop the causal diagonal key; drop the sliding window's oldest
+  key; drop the ragged last key; skip the rescale of the output carry on
+  the second key tile.  Each is written into both of the file's kernels.
+* ``tile_matmul`` (float64, ``C - A B^T`` and ``C - A B``): drop the last
+  K split from the cluster's sum; drop the last K slice of every split.
+* ``ssd_scan`` (float32 and bfloat16): skip the carried-state term
+  ``e^cs C . s_{c-1}``; drop the diagonal ``j = i`` of the decay; do not
+  pass the state on from one chunk to the next.
+
+The script exits non-zero if the copy without a fault fails a case or if
+a fault passes every case (for the prefill kernel: every bfloat16 case).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CSRC = Path("src/repro_torch/kernels/csrc")
+
+#: kernel -> fault name -> (text, replacement) pairs, each found at least once
+FAULTS = {
+    "flash_attention": {
+        "none": [],
+        "drop the diagonal key": [("kpos <= qpos", "kpos < qpos")],
+        "drop the window's oldest key": [("qpos - kpos < window)",
+                                          "qpos - kpos < window - 1)")],
+        "drop the ragged last key": [("kpos < S &&", "kpos < S - 1 &&")],
+        "skip one tile's rescale": [
+            ("o[x] *= corr[(x >> 1) & 1];",
+             "if (t != 1) o[x] *= corr[(x >> 1) & 1];"),
+            ("for (int j = 0; j < DCH; ++j) o[i][j] *= corr;",
+             "for (int j = 0; j < DCH; ++j) if (k0 != kv_begin + kBK) "
+             "o[i][j] *= corr;")],
+    },
+    "tile_matmul": {
+        "none": [],
+        "drop the last K split": [("for (int q = 0; q < splits; ++q)",
+                                   "for (int q = 0; q < splits - 1; ++q)")],
+        "drop each split's last K slice": [
+            ("min(s_begin + per, slices) - s_begin)",
+             "min(s_begin + per, slices) - s_begin - 1)")],
+    },
+    "ssd_scan": {
+        "none": [],
+        "skip the carried state C s_{c-1}": [
+            ("keys<0, R>(acc, sCT + rg * R, x + Lp * P, LR, P, 0, Np);",
+             "keys<0, R>(acc, sCT + rg * R, x + Lp * P, LR, P, 0, 0);")],
+        "drop the diagonal j = i": [("(k <= i && i < L)", "(k < i && i < L)")],
+        "do not pass the state on": [(
+            "        s.x = s.x * dec[u] + d[u].x;\n"
+            "        s.y = s.y * dec[u] + d[u].y;\n"
+            "        s.z = s.z * dec[u] + d[u].z;\n"
+            "        s.w = s.w * dec[u] + d[u].w;\n", "        s = d[u];\n")],
+    },
+}
+
+#: prefill cases: (case, S, window, needle offset or None, keyword arguments)
+FLASH_CASES = [
+    ("S=512 causal", 512, 0, None, {}),
+    ("S=500 causal (ragged)", 500, 0, None, {}),
+    ("S=512 window=64", 512, 64, None, {}),
+    ("S=512 needle on the diagonal", 512, 0, 0, {}),
+    ("S=512 window=64 needle on the oldest key", 512, 64, 63, {}),
+    ("S=500 needle on the diagonal and the ragged last key", 500, 0, 0, {}),
+    ("zamba2 d=112 S=512 causal", 512, 0, None,
+     dict(H=32, KV=32, d=112)),
+]
+#: float64 GEMM cases: (M, N, K, mode)
+GEMM_CASES = [(192, 192, 192, "sub_t"), (192, 192, 192, "sub_nn"),
+              (200, 136, 72, "sub_t"), (20, 9, 72, "sub_t")]
+#: SSD cases: (case, B, T, H, N, P, decay rate a)
+SSD_CASES = [("zamba2 T=512", 1, 512, 112, 64, 64, -1.0),
+             ("mamba2 T=512", 1, 512, 80, 128, 64, -1.0),
+             ("zamba2 T=300 (ragged)", 1, 300, 112, 64, 64, -1.0),
+             ("zamba2 T=100 (one short chunk)", 1, 100, 112, 64, 64, -1.0),
+             ("zamba2 T=512 slow decay", 1, 512, 112, 64, 64, -0.02)]
+
+
+def child(kernel: str) -> None:
+    """In the faulted copy: build it, run the kernel's cases, print the
+    shares of the limits."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels import cuda_lib
+
+    failures = []
+    chip_smoke.check = lambda ok, what: ok or failures.append(what)
+    chip_smoke.emit = lambda obj: None
+    cuda_lib.build([kernel])
+    out = {}
+    if kernel == "flash_attention":
+        for seed, (case, S, window, needle, kw) in enumerate(FLASH_CASES):
+            row = chip_smoke.flash_case(case, S, window, seed=100 + seed,
+                                        needle=needle, timed=False, **kw)
+            out[case] = {t: e["tol_share"] for t, e in row["errors"].items()}
+    elif kernel == "tile_matmul":
+        for seed, (M, N, K, mode) in enumerate(GEMM_CASES):
+            case = f"{chip_smoke.GEMM_NAMES[mode]} {M}x{N}x{K}"
+            row = chip_smoke.kernel_case(case, torch.float64, M, N, K,
+                                         mode=mode, seed=100 + seed,
+                                         timed=False)
+            out[case] = {"float64": row["max_rel_err"]
+                         / chip_smoke.F64_REL_TOL}
+    else:
+        for seed, (case, B, T, H, N, P, a) in enumerate(SSD_CASES):
+            row = chip_smoke.ssd_case(case, B, T, H, N, P, seed=100 + seed,
+                                      dtypes=(torch.float32, torch.bfloat16),
+                                      timed=False, a=a)
+            out[case] = {t: max(e["y"]["tol_share"], e["state"]["tol_share"])
+                         for t, e in row["errors"].items()}
+    print(json.dumps({"cases": out, "failed_checks": len(failures)}))
+
+
+def run_fault(kernel: str, fault: str, edits) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp)
+        shutil.copytree(ROOT / "src", copy / "src",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
+        shutil.copy(ROOT / "kernel_faults.py", copy / "kernel_faults.py")
+        src = copy / CSRC / f"{kernel}.cu"
+        text = src.read_text()
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"fault {fault!r}: {old!r} is not in "
+                                 f"{CSRC / kernel}.cu")
+            text = text.replace(old, new)
+        src.write_text(text)
+        run = subprocess.run([sys.executable, "kernel_faults.py", "--child",
+                              kernel], cwd=copy, capture_output=True,
+                             text=True, timeout=900)
+    if run.returncode != 0:
+        print(run.stdout[-2000:], run.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"{kernel} fault {fault!r}: the run failed")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(FAULTS), action="append",
+                    help="only this kernel's faults (repeatable)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child(args.child)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_faults: no CUDA device is available", file=sys.stderr)
+        return 1
+    ok = True
+    for kernel in args.kernel or list(FAULTS):
+        for fault, edits in FAULTS[kernel].items():
+            result = run_fault(kernel, fault, edits)
+            # the prefill kernel is judged at its bfloat16 limit, which the
+            # needle inputs make tight; the others by every check
+            if kernel == "flash_attention":
+                worst = max(c["bfloat16"] for c in result["cases"].values())
+                fails = worst > 1.0
+            else:
+                worst = max(max(c.values()) for c in result["cases"].values())
+                fails = worst > 1.0 or result["failed_checks"] > 0
+            ok &= (not fails) if fault == "none" else fails
+            print(json.dumps({"kernel": kernel, "fault": fault,
+                              "fails": fails, "worst_share": worst,
+                              **result}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

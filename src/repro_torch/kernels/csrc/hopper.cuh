@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels:
-// mbarriers, the bulk and tensor (TMA) copies that complete on them, and
-// the host-side encoding of a TMA tensor map.  Everything is inline PTX or
+// Hopper (sm_90a) building blocks shared by the kernels: mbarriers, the
+// bulk and tensor (TMA) copies that complete on them, the host-side
+// encoding of a TMA tensor map, cp.async copies, programmatic dependent
+// launch, and the float64 tensor-core product (mma.sync, DMMA) of the tile
+// GEMM.  Everything is inline PTX or
 // a driver entry point fetched through the runtime, so a kernel source
 // that includes this header needs no flag beyond cuda_lib.NVCC_FLAGS.
 
@@ -92,6 +94,62 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------- cp.async
+// one `BYTES`-byte (4, 8 or 16) copy from global to shared memory that
+// writes zeros where `valid` is false (nothing is read then: `src` need
+// only be a valid address); both ends aligned to BYTES
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  const int n = valid ? BYTES : 0;
+  const size_t g = __cvta_generic_to_global(src);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(smem_u32(dst)), "l"(g), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 :: "r"(smem_u32(dst)), "l"(g), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// waits until at most `N` of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// --------------------------------------------- programmatic dependent launch
+// lets the grid launched next on the stream with
+// cudaLaunchAttributeProgrammaticStreamSerialization start now
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// waits until the grids this one depends on have completed and their
+// writes are visible; returns at once in a grid launched without the
+// attribute
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// ------------------------------------------------------------ mma.sync
+// Lane roles in every fragment below: g = lane / 4 (group), t = lane % 4.
+
+// float64 on the DMMA tensor cores, D (8 x 8) += A (8 x 4) B (4 x 8):
+// a = A[g][t], b = B[t][g]; d[i] = D[g][2 t + i]
+__device__ __forceinline__ void mma_f64_m8n8k4(double (&d)[2], double a,
+                                               double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(d[0]), "+d"(d[1]) : "d"(a), "d"(b));
 }
 
 // ------------------------------------------------------------ tensor maps

@@ -15,7 +15,12 @@ no fallback between the two.
 
 The kernel takes ``P`` of 32 or 64 and any ``L`` and ``N`` whose chunk fits
 a block's 227 KB of shared memory (:func:`smem_bytes`): ``L = 128`` with
-``N`` up to 128 at ``P = 64``.  Anything else raises with the reason.
+``N`` up to 128 at ``P = 64``.  Anything else raises with the reason.  One
+call is three device launches (the chunks' state increments and ``C·Bᵀ``,
+the state recurrence, the outputs) into two float32 scratch tensors that
+the wrapper allocates (:func:`scratch_shapes`), with the heads of a chunk
+cut into head groups per chunk (:func:`chunk_groups`); ``launches``
+counts the call once.
 
 Replaces the Pallas kernel ``repro/kernels/ssd_scan.py::ssd_scan``.
 """
@@ -29,7 +34,8 @@ import torch
 from . import cuda_lib
 from .ref import ssd_scan_ref
 
-__all__ = ["MAX_SMEM_BYTES", "PS", "launches", "smem_bytes", "ssd_scan"]
+__all__ = ["MAX_SMEM_BYTES", "PS", "TARGET_BLOCKS", "chunk_groups", "launches",
+           "scratch_shapes", "smem_bytes", "ssd_scan"]
 
 #: launches of the CUDA kernel (CPU calls do not count)
 launches = cuda_lib.LaunchCounter("ssd_scan")
@@ -40,21 +46,71 @@ MAX_SMEM_BYTES = 232448
 PS = (32, 64)
 _DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
 _fn = None
+#: blocks a batch row's passes aim at: one for each of the H100's 132 SMs
+TARGET_BLOCKS = 132
+
+
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _rows(Lp: int, P: int):
+    """The output block's rows: ``(RS, R)``, a thread per 4 columns of a
+    row group, its R rows RS apart (R the least of 2, 4, 8 with ``R * RS
+    >= Lp``, else 0)."""
+    rs = 512 // (P // 4)
+    return rs, next((r for r in (2, 4, 8) if Lp <= r * rs), 0)
 
 
 def smem_bytes(L: int, N: int, P: int) -> int:
-    """Shared memory of one block: the (N, P) state, the head's (L, P)
-    xdt, padded (L, N + 1) B and C, a 32-row weight tile and two L-vectors,
-    all float32 (``csrc/ssd_scan.cu``'s ``smem_bytes``)."""
-    return 4 * (N * P + L * P + 2 * L * (N + 1) + 32 * L + 2 * L)
+    """Shared memory of the kernel's larger block in bytes, with L and N
+    rounded up to 16 (``Lp``, ``Np``; ``csrc/ssd_scan.cu``'s ``state_smem``
+    and ``output_smem``), all float32: the state-increment block holds B
+    (Lp, Np), two heads' xdt (Lp, P) and an Lp-vector; the ``C·Bᵀ`` block C
+    or B (Lp, Np + 1), Cᵀ and Bᵀ (Np, Lp + 4); the output block a head's
+    Wᵀ (Lp, LR) and its chunk's Cᵀ (Np, LR), [xdt; state] (Lp + Np, P) and
+    three vectors, with LR = R * RS output rows (:func:`_rows`)."""
+    Lp, Np = _pad16(L), _pad16(N)
+    rs, r = _rows(Lp, P)
+    if r == 0:
+        return 1 << 40
+    state = max(Lp * Np + 2 * Lp * P + Lp, Lp * (Np + 1) + 2 * Np * (Lp + 4))
+    output = (Lp + Np) * (r * rs + P) + 2 * r * rs + Lp
+    return 4 * max(state, output)
+
+
+def chunk_groups(nc: int, H: int) -> int:
+    """Head groups per chunk: the state-increment and output passes take a
+    chunk's heads in this many contiguous ranges ``[g H // groups, (g + 1)
+    H // groups)``, a block each, which loads the chunk's head-independent
+    operands once.  At most :data:`TARGET_BLOCKS` blocks for a batch row's
+    ``nc`` chunks (each with as few heads as that allows); a function of
+    ``nc`` and ``H`` only (never of the batch size; a head's result does not
+    depend on its group either): zamba2-7b's 512-token prefill (nc = 4, H =
+    112) takes 28 groups of 4 heads, 112 blocks."""
+    if nc <= 0 or H <= 0:
+        raise ValueError(f"empty scan: nc={nc}, H={H}")
+    per = -(-nc * H // TARGET_BLOCKS)          # heads a block, at least
+    return -(-H // per)
+
+
+def scratch_shapes(B: int, nc: int, L: int, H: int, N: int, P: int):
+    """The kernel's two float32 scratch tensors: each chunk's ``(C·Bᵀ)ᵀ``
+    and ``Cᵀ`` stacked, their columns in the output block's row order,
+    ``(B, nc, Lp + Np, LR)`` (L, N rounded up to 16; LR from :func:`_rows`);
+    and each chunk's state increment, overwritten by the state entering
+    the chunk, ``(B, nc, H, N, P)``."""
+    Lp, Np = _pad16(L), _pad16(N)
+    rs, r = _rows(Lp, P)
+    return (B, nc, Lp + Np, r * rs), (B, nc, H, N, P)
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = cuda_lib.load("ssd_scan").ssd_scan_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -119,9 +175,12 @@ def ssd_scan(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
     fn = _launcher()
     y = torch.empty_like(xdt)
     final = torch.empty((B, H, N, P), dtype=torch.float32, device=xdt.device)
+    cb, st = (torch.empty(shape, dtype=torch.float32, device=xdt.device)
+              for shape in scratch_shapes(B, nc, L, H, N, P))
     err = fn(_DTYPE_CODES[xdt.dtype], xdt.data_ptr(), cs.data_ptr(),
              Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), final.data_ptr(),
-             B, nc, L, H, N, P, torch.cuda.current_stream().cuda_stream)
+             cb.data_ptr(), st.data_ptr(), B, nc, L, H, N, P,
+             chunk_groups(nc, H), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
                            f"{err} (B={B}, nc={nc}, L={L}, H={H}, N={N}, "

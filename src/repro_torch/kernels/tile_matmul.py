@@ -7,26 +7,57 @@ raises if the kernel cannot be built or launched); on CPU tensors it runs
 the plain version, :func:`~repro_torch.kernels.ref.tile_matmul_ref`.  There
 is no mode switch and no fallback between the two.
 
+float64 runs on the DMMA tensor cores with K cut into
+:func:`gemm_splits` ranges, one thread-block cluster per output block;
+float32 and bfloat16 run the kernel's float32 FMA path.
+
 Replaces the Pallas kernel ``repro/kernels/tile_matmul.py::tile_matmul``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_lib
 from .ref import tile_matmul_ref
 
-__all__ = ["launches", "tile_matmul"]
+__all__ = ["BLOCK", "K_SLICE", "MAX_SPLITS", "TARGET_BLOCKS", "gemm_splits",
+           "launches", "tile_matmul"]
 
 #: launches of the CUDA kernel (CPU calls do not count)
 launches = cuda_lib.LaunchCounter("tile_matmul")
 
 _DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 _fn = None
+
+#: the float64 kernel's output block (rows = columns) and K slice depth
+BLOCK = 32
+K_SLICE = 16
+#: the largest cluster of K splits (the portable cluster size)
+MAX_SPLITS = 8
+#: blocks a float64 launch aims at: about one for each of the H100's 132
+#: SMs, a little more so that no SM waits on a second wave of whole tiles
+TARGET_BLOCKS = 160
+
+
+def gemm_splits(M: int, N: int, K: int) -> Tuple[int, int]:
+    """How the float64 kernel cuts K: returns ``(splits, per)``, split
+    ``z`` taking the 16-deep K slices ``[z * per, (z + 1) * per)`` clipped
+    to ``ceil(K / 16)``.  ``splits`` fills about :data:`TARGET_BLOCKS`
+    blocks with ``ceil(M / 32) * ceil(N / 32)`` output blocks, at most
+    :data:`MAX_SPLITS` and at most one per slice, and no split is empty.
+    A function of the three integers only, so that one shape sums in one
+    order on every launch: 192^3 gives ``(4, 3)``, 144 blocks."""
+    if min(M, N, K) <= 0:
+        raise ValueError(f"empty product: M={M}, N={N}, K={K}")
+    tiles = -(-M // BLOCK) * -(-N // BLOCK)
+    slices = -(-K // K_SLICE)
+    want = max(1, min(MAX_SPLITS, slices, TARGET_BLOCKS // tiles))
+    per = -(-slices // want)
+    return -(-slices // per), per
 
 
 def _launcher():
@@ -35,7 +66,8 @@ def _launcher():
         fn = cuda_lib.load("tile_matmul").tile_matmul_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 8
-                       + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
+                       + [ctypes.c_double, ctypes.c_double]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -91,12 +123,13 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"tensors are on {a.device} but the current device "
                          f"is cuda:{torch.cuda.current_device()}")
     fn = _launcher()
+    splits, per = gemm_splits(M, N, K)
     if out is None:
         out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
              None if c is None else c.data_ptr(), out.data_ptr(),
              M, N, K, K, b.shape[1], N, N, int(trans_b), float(alpha),
-             float(beta), torch.cuda.current_stream().cuda_stream)
+             float(beta), splits, per, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile_matmul kernel launch failed with CUDA "
                            f"error {err} (M={M}, N={N}, K={K}, {a.dtype})")

@@ -44,6 +44,18 @@ def cuda():
     ("float64", 192, 192, 192, True),
     ("float64", 200, 136, 72, True),
     ("float64", 33, 65, 17, False),
+    # the DMMA kernel's edges: both layouts at the Cholesky tile, shallow
+    # and ragged K (one or several 16-deep slices, 1-8 splits), tiles below
+    # one 32 x 32 block
+    ("float64", 192, 192, 192, False),
+    ("float64", 192, 192, 1, True),
+    ("float64", 192, 192, 3, False),
+    ("float64", 192, 192, 17, True),
+    ("float64", 192, 192, 72, False),
+    ("float64", 20, 192, 72, True),
+    ("float64", 192, 9, 17, False),
+    ("float64", 5, 7, 3, True),
+    ("float64", 64, 64, 4096, True),
     ("float32", 256, 256, 256, False),
     ("float32", 512, 128, 256, False),
     ("bfloat16", 256, 256, 256, False),
@@ -70,6 +82,10 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, M, N, K, trans_b):
         assert err.item() <= F64_RTOL
     else:
         torch.testing.assert_close(got.float(), expect.float(), **TOL[dtype])
+    again = c.clone()
+    tm.tile_matmul(a, b, again, alpha=-1.0, beta=1.0, trans_b=trans_b,
+                   out=again)
+    assert torch.equal(got, again)      # K splits merged in a fixed order
 
 
 def test_cuda_tensor_with_unbuildable_kernel_raises(cuda, monkeypatch, tmp_path):
@@ -120,7 +136,7 @@ ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 # at most u = 2**-8 relative, the output moves by at most u * sum_j p_j |v_j|
 # / l, u times the attention of |v|, on top of ATTN_TOL's one ulp
 # (chip_smoke.py's FLASH_P_ROUND; planted faults fail it, see
-# attention_faults.py)
+# kernel_faults.py)
 FLASH_P_ROUND = 2.0 ** -8
 
 
@@ -363,6 +379,7 @@ def _ssd_inputs(B, T, H, N, P, chunk, dtype, device, seed):
     (2, 512, 112, 64, 64, 128),
     (1, 100, 112, 64, 64, 128),         # one short chunk, L = T = 100
     (2, 80, 8, 16, 32, 32),             # the reduced configs
+    (1, 4096, 112, 64, 64, 128),        # 32 chunks in the state recurrence
 ])
 def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, T, H, N, P,
                                                chunk):
@@ -382,6 +399,21 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, T, H, N, P,
     torch.testing.assert_close(s, es, **SSD_TOL["float32"])
     y2, s2 = ss.ssd_scan(xdt, cs, Bm, Cm)
     assert torch.equal(y, y2) and torch.equal(s, s2)   # no atomics: same bits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_batch_rows_equal_their_scans_alone(cuda, dtype):
+    """Batch invariance: row b of a B = 2 scan is the B = 1 scan of that
+    row bit for bit (the engine serves a request in a batch with the bits
+    it gets alone)."""
+    dt = getattr(torch, dtype)
+    xdt, cs, Bm, Cm = _ssd_inputs(2, 512, 112, 64, 64, 128, dt, cuda,
+                                  seed=21)
+    y, s = ss.ssd_scan(xdt, cs, Bm, Cm)
+    for b in range(2):
+        yb, sb = ss.ssd_scan(*(t[b:b + 1].contiguous()
+                               for t in (xdt, cs, Bm, Cm)))
+        assert torch.equal(yb, y[b:b + 1]) and torch.equal(sb, s[b:b + 1])
 
 
 def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):

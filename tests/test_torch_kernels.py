@@ -185,3 +185,33 @@ def test_library_path_changes_when_a_shared_header_changes(tmp_path,
     monkeypatch.setattr(cuda_lib, "NVCC_FLAGS",
                         cuda_lib.NVCC_FLAGS + ("-DX",))
     assert cuda_lib.library_path("k") not in (first, edited, added, source)
+
+
+# the float64 kernel's K plan: gemm_splits(M, N, K)
+@pytest.mark.parametrize("M,N,K", [(192, 192, 192), (200, 136, 72),
+                                   (33, 65, 17), (192, 192, 1), (192, 192, 3),
+                                   (20, 9, 72), (1, 1, 1), (32, 32, 4096),
+                                   (7680, 192, 192), (256, 256, 256)])
+def test_gemm_splits_cover_every_k_slice_once(M, N, K):
+    splits, per = tm.gemm_splits(M, N, K)
+    slices = -(-K // tm.K_SLICE)
+    assert 1 <= splits <= min(tm.MAX_SPLITS, slices) and per >= 1
+    covered = [s for z in range(splits)
+               for s in range(z * per, min((z + 1) * per, slices))]
+    assert covered == list(range(slices))            # each slice once, in order
+    assert (splits - 1) * per < slices               # no split is empty
+    tiles = -(-M // tm.BLOCK) * -(-N // tm.BLOCK)
+    assert splits == 1 or tiles * splits <= tm.TARGET_BLOCKS
+    assert tm.gemm_splits(M, N, K) == (splits, per)  # a function of the shape
+
+
+def test_gemm_splits_fill_the_card_at_the_cholesky_tile():
+    """192^3: 36 output blocks, 12 slices, 4 splits of 3 -> 144 blocks."""
+    assert tm.gemm_splits(192, 192, 192) == (4, 3)
+    assert tm.gemm_splits(200, 136, 72) == (3, 2)
+
+
+@pytest.mark.parametrize("M,N,K", [(0, 4, 4), (4, 0, 4), (4, 4, 0)])
+def test_gemm_splits_refuse_an_empty_product(M, N, K):
+    with pytest.raises(ValueError, match="empty product"):
+        tm.gemm_splits(M, N, K)

@@ -3,7 +3,10 @@
 * The SSD chunk scan: the port's plain version (``ssd_scan_ref``, what the
   CUDA kernel's wrapper runs on CPU tensors) against the Pallas kernel in
   interpret mode and against the reference's own oracle, float32, at the
-  reference's limit ``rtol = atol = 1e-4`` (``tests/test_kernels.py``).
+  reference's limit ``rtol = atol = 1e-4`` (``tests/test_kernels.py``);
+  the CUDA kernel's three passes (state increments and ``C·Bᵀ``, the state
+  recurrence, the outputs), written out in torch on its padded scratch
+  layout, against the same two; and its shared-memory plan.
 * ``ssd_chunked`` and ``_causal_conv`` against ``repro.models.ssm``'s.
 * The reduced mamba2-2.7b and zamba2-7b through ``params_from_reference``:
   an 80-token prompt (ragged at the reduced chunk of 32), then 8 decode
@@ -40,6 +43,7 @@ from repro.models.lm import layer_flags as jax_layer_flags
 from repro.serving import ContinuousBatchingEngine as JaxEngine
 from repro_torch.configs import get_config
 from repro_torch.kernels import launch_counts, ops
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models import (build_decode_graph, cache_struct, decode_step,
                                 greedy_sample, init_params, make_decode_state,
@@ -117,6 +121,117 @@ def test_ssd_scan_checks_its_inputs():
         ops.ssd_scan(xdt, cs.double(), Bm, Cm)
     with pytest.raises(TypeError, match="Bm is torch.bfloat16"):
         ops.ssd_scan(xdt, cs, Bm.bfloat16(), Cm)
+
+
+def _kernel_passes(xdt, cs, Bm, Cm):
+    """The SSD kernel's decomposition (``csrc/ssd_scan.cu``) in torch, on
+    its scratch layout: each chunk's ``(C·Bᵀ)ᵀ`` and ``Cᵀ`` stacked, with
+    output row i in column ``(i % RS) * R + i // RS``, and its own state
+    increment; then the state recurrence over the chunks, leaving the
+    incoming state in the increments' place; then per head ``y = Aᵀᵀ ·
+    [xdt; s_in]`` with ``Aᵀ`` built from the scratch, the decay masked
+    before its exp, and the rows read back in slot order."""
+    B, nc, L, H, P = xdt.shape
+    N = Bm.shape[-1]
+    cb_shape, st_shape = ss.scratch_shapes(B, nc, L, H, N, P)
+    Lp, LR = -(-L // 16) * 16, cb_shape[-1]
+    rs = 512 // (P // 4)
+    R = LR // rs
+    row = torch.tensor([(s % R) * rs + s // R for s in range(LR)])
+    real = row < L
+    cb = torch.zeros(cb_shape)
+    gt = (Cm @ Bm.mT).mT                                  # (B, nc, k, i)
+    cb[:, :, :L, real] = gt[:, :, :, row[real]]
+    cb[:, :, Lp:Lp + N, real] = Cm.mT[:, :, :, row[real]]
+    w_end = torch.exp(cs[:, :, -1:, :] - cs)
+    st = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bm, w_end, xdt)
+    assert st.shape == st_shape
+    s = torch.zeros(B, H, N, P)
+    for c in range(nc):
+        inc = st[:, c].clone()
+        st[:, c] = s
+        s = s * torch.exp(cs[:, c, -1])[:, :, None, None] + inc
+    zero = torch.zeros(())
+    rows = row.clamp(max=L - 1)
+    cs_row = cs[:, :, rows, :]                            # (B, nc, LR, H)
+    keep = (torch.arange(L)[:, None] <= row[None, :]) & real[None, :]
+    diff = cs_row[:, :, None, :, :] - cs[:, :, :, None, :]   # (.., k, s, H)
+    w = torch.where(keep[None, None, :, :, None],
+                    cb[:, :, :L, :, None]
+                    * torch.exp(torch.where(keep[None, None, :, :, None],
+                                            diff, zero)), zero)
+    ec = torch.where(real[None, None, :, None], torch.exp(cs_row), zero)
+    a_c = cb[:, :, Lp:Lp + N, :, None] * ec[:, :, None, :, :]
+    y_slot = (torch.einsum("bcksh,bckhp->bcshp", w, xdt)
+              + torch.einsum("bcnsh,bchnp->bcshp", a_c, st))
+    y = torch.zeros_like(xdt)
+    y[:, :, row[real]] = y_slot[:, :, real]
+    return y, s
+
+
+@pytest.mark.parametrize("B,nc,L,H,N,P,steep,pad", [
+    (2, 3, 32, 4, 16, 32, False, 0),
+    (1, 3, 32, 4, 16, 32, False, 16),      # a padded last chunk
+    (1, 1, 20, 4, 16, 32, False, 0),       # L = 20: Lp = 32 in the scratch
+    (1, 2, 128, 2, 16, 32, True, 0),       # the model's decay: overflow above
+])
+def test_ssd_kernel_decomposition_matches_pallas_kernel_and_oracle(
+        B, nc, L, H, N, P, steep, pad):
+    arrays = _scan_inputs(B, nc, L, H, N, P, seed=5, steep=steep, pad=pad)
+    y, s = _kernel_passes(*(torch.from_numpy(a) for a in arrays))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    jarrays = [jnp.asarray(a) for a in arrays]
+    jy, js = jax_ops.ssd_scan(*jarrays, mode="interpret")
+    oy, os_ = jax_ssd_scan_ref(*jarrays)
+    for want_y, want_s in ((jy, js), (oy, os_)):
+        np.testing.assert_allclose(_np(y), _np(want_y), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(_np(s), _np(want_s), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("L,N,P,fits", [
+    (128, 64, 64, True),                   # zamba2-7b's prefill chunk
+    (128, 128, 64, True),                  # mamba2-2.7b's
+    (32, 16, 32, True),                    # the reduced configs
+    (100, 64, 64, True),                   # a short prompt's one chunk
+    (256, 128, 64, False),                 # 483 KB
+    (128, 256, 64, False),
+])
+def test_ssd_kernel_plan_depends_on_shape_and_refuses_what_cannot_fit(
+        L, N, P, fits):
+    size = ss.smem_bytes(L, N, P)
+    assert size == ss.smem_bytes(L, N, P)
+    assert (size <= ss.MAX_SMEM_BYTES) == fits
+    Lp, Np = -(-L // 16) * 16, -(-N // 16) * 16
+    cb, st = ss.scratch_shapes(2, 3, L, 5, N, P)
+    assert cb[:3] == (2, 3, Lp + Np) and cb[3] >= Lp and st == (2, 3, 5, N, P)
+    if fits:                               # the output block holds Aᵀ
+        assert size >= 4 * (Lp + Np) * cb[3]
+
+
+@pytest.mark.parametrize("nc,H", [(4, 112), (4, 80), (32, 112), (1, 112),
+                                  (3, 8), (1, 1), (200, 3)])
+def test_ssd_chunk_groups_cover_every_head_once(nc, H):
+    """The kernel's blocks take a chunk's heads in contiguous ranges [g H //
+    groups, (g + 1) H // groups): each head once, no range empty, sizes
+    within one of each other, at most one block per SM over the row."""
+    groups = ss.chunk_groups(nc, H)
+    assert groups == ss.chunk_groups(nc, H) and 1 <= groups <= H
+    ranges = [range(g * H // groups, (g + 1) * H // groups)
+              for g in range(groups)]
+    assert [h for r in ranges for h in r] == list(range(H))
+    sizes = {len(r) for r in ranges}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert nc * groups <= max(ss.TARGET_BLOCKS, nc)
+
+
+def test_ssd_chunk_groups_at_the_prefill_shapes_and_refuse_empty_scans():
+    assert ss.chunk_groups(4, 112) == 28           # zamba2-7b: 112 blocks
+    assert ss.chunk_groups(4, 80) == 27            # mamba2-2.7b: 108 blocks
+    assert ss.chunk_groups(32, 112) == 4           # T = 4096: 128 blocks
+    assert ss.chunk_groups(1, 8) == 8              # fewer heads than SMs
+    for nc, H in ((0, 4), (4, 0)):
+        with pytest.raises(ValueError, match="empty scan"):
+            ss.chunk_groups(nc, H)
 
 
 @pytest.mark.parametrize("T,chunk", [(96, 32), (80, 32), (20, 32)])
