@@ -15,7 +15,7 @@ Phases, each printed as one JSON line:
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card at its main paths' shapes, each twice for the same bits (the
    float64 tile GEMM's ``C - A B^T`` and ``C - A B`` at 192^3, ragged and
-   at shallow K; the attention kernels in float32 and in bfloat16, on the
+   at shallow K, and QR's tall ``V^T A`` and ``A - V Y``; the attention kernels in float32 and in bfloat16, on the
    same inputs, at qwen3-14b's and at zamba2-7b's head dims; decode also
    with fewer keys than splits, prefill also with needle inputs whose
    weight sits on one masked-edge key; the SSD scan at zamba2-7b's and
@@ -33,7 +33,26 @@ Phases, each printed as one JSON line:
    task bodies times the session's planning and the runtime's dispatch
    alone; then one more ``hybrid`` run under ``torch.profiler``: device
    time by kernel and the device's busy share;
-5. the serving paths, each model at full width and depth in bfloat16,
+5. the LU and QR paths, at the Cholesky path's size: a float64 tiled LU
+   (no pivoting) of ``random_diagdom(n, seed=0)`` and a Householder QR of
+   a standard normal matrix from numpy seed 0, built with
+   ``build_lu_graph`` / ``build_qr_graph`` (panels forked as gang regions
+   of 4 threads, run on the host in numpy) and run by ``Session(4)`` under
+   ``hybrid`` and ``history``; the residual, the agreement with
+   ``torch.linalg.lu_factor_ex(pivot=False)`` (LU) or with the magnitudes
+   of ``torch.linalg.qr``'s R (QR), the kernel's launches and the two
+   policies' bit-identity are checked, and the panels' host seconds, the
+   steals and the gang regions are printed; then one more ``hybrid`` run
+   of each under ``torch.profiler``: device time by kernel and the
+   device's busy share;
+6. record and replay: one ``hybrid`` LU run recorded
+   (``Session(4, record=True)``), stored in an on-disk ``GraphCache`` and
+   replayed by ``Session(4, scheduler="replay")`` from it, then LU's static
+   recording (``lu_static_recording``) replayed, each bit-identical to the
+   dynamic factors and the first with the recorded gang issue order; then
+   three Cholesky runs through ``Session(4, scheduler="pool")``, which
+   must warm up, record and replay, with the same factors each time;
+7. the serving paths, each model at full width and depth in bfloat16,
    random weights made on the card from seed 0, and freed before the
    next: qwen3-14b (dense), zamba2-7b (hybrid: Mamba2 layers and a shared
    attention block) and mamba2-2.7b (ssm).  For each, batch: four
@@ -44,14 +63,15 @@ Phases, each printed as one JSON line:
    the kernels' launches exact (every SSM layer's prefill launches the
    SSD scan; every attention layer, or use of the shared block, launches
    flash attention per prompt and decode attention per lane-step);
-6. qwen3-14b and zamba2-7b, Poisson: the ``ContinuousBatchingEngine``
+8. qwen3-14b and zamba2-7b, Poisson: the ``ContinuousBatchingEngine``
    with ``max_batch=4`` over ``serve_lm``'s default stream (rate 100/s,
    12 requests, budgets 2..8) with prompts of 256..1024 tokens; every
    request's tokens must equal serving it alone (``max_batch=1``);
-7. for each model one more 4-lane decode step under ``torch.profiler``:
+9. for each model one more 4-lane decode step under ``torch.profiler``:
    device time by kernel, kernels per lane-step and the device's busy
    share; then one 512-token prefill of one prompt: device time by kernel;
-8. a ``kernels`` summary line, then the device line last.
+10. the script's seconds so far, a ``kernels`` summary line, then the
+    device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available.
@@ -60,6 +80,7 @@ non-zero, printing no result, when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -87,6 +108,21 @@ PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12,
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 F64_REL_TOL = 1e-12
+#: the LU path's factors against ``torch.linalg.lu_factor_ex(pivot=False)``
+#: (cuSOLVER's unpivoted LU), largest difference over the largest entry:
+#: the matrix is strictly diagonally dominant, so both factorizations are
+#: stable and their factors differ by rounding, as L does from
+#: ``torch.linalg.cholesky`` on the Cholesky path (1e-10 there too)
+LU_REF_TOL = 1e-10
+#: the QR path's |R| against ``torch.linalg.qr``'s |R| (Householder signs
+#: may differ by row), Frobenius norm of the difference over that of R.  R
+#: is fixed by A up to those signs, but its forward error is about
+#: cond(A) times the backward error: a 7680 x 7680 standard normal matrix
+#: has a condition number of order 1e4 to 1e5, so agreement to 1e-8
+#: leaves two orders of magnitude for the two factorizations' rounding
+QR_R_TOL = 1e-8
+#: the gang regions of the LU and QR panels (ULTs per region)
+PANEL_THREADS = 4
 WORKERS = 4
 KERNELS = ("tile_matmul", "flash_attention", "decode_attention", "ssd_scan")
 CSRC = "src/repro_torch/kernels/csrc"
@@ -1033,6 +1069,285 @@ def main_path_phase(a, warm, tile: int, smi: str):
     return runs
 
 
+def expected_panel_launches(kernel: str, nb: int) -> int:
+    """``tile_matmul`` launches of one LU or QR factorization with ``nb``
+    block columns.  LU: step k updates nb-k-1 columns with nb-k-1 tile
+    GEMMs each, sum_{m=1}^{nb-1} m^2 in all (20,540 at nb = 40).  QR: step
+    k updates nb-k-1 columns with ``COL_UPDATE_LAUNCHES`` launches each
+    (V^T A, T^T W and A - V Y), 3 C(nb, 2) in all (2,340 at nb = 40)."""
+    if kernel == "lu":
+        return sum(m * m for m in range(1, nb))
+    from repro_torch.linalg.qr import COL_UPDATE_LAUNCHES
+    return COL_UPDATE_LAUNCHES * math.comb(nb, 2)
+
+
+class HostClock:
+    """Host seconds of one LU or QR run's panel tasks (each panel task's
+    body: the gather to the host, the gang region, the write-back) and of
+    their gathers alone (the synchronising ``.cpu()`` copy, which first
+    waits for every kernel queued before it on the stream)."""
+
+    def __init__(self):
+        self.panel_s = []
+        self.gather_s = []
+
+    @staticmethod
+    def _timed(fn, sink):
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                sink.append(time.perf_counter() - t0)
+        return timed
+
+    def wrap_panels(self, graph) -> None:
+        for task in graph:
+            if task.kind == "panel" and task.fn is not None:
+                task.fn = self._timed(task.fn, self.panel_s)
+
+    @contextlib.contextmanager
+    def gathers(self, module):
+        real = module.column_to_host
+        module.column_to_host = self._timed(real, self.gather_s)
+        try:
+            yield
+        finally:
+            module.column_to_host = real
+
+    def row(self) -> dict:
+        return {"panel_host_s": sum(self.panel_s),
+                "panel_gather_s": sum(self.gather_s),
+                "panel_tasks": len(self.panel_s),
+                "panel_max_s": max(self.panel_s, default=0.0)}
+
+
+def factor_panels(session, kernel: str, a, tile: int):
+    """One LU or QR run of ``a`` through ``session``: returns (store,
+    report, enqueue seconds, synchronised wall seconds, launches, the
+    panels' :class:`HostClock`, task count)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.linalg import KERNELS, lu, qr, to_tiles
+
+    nb = a.shape[0] // tile
+    store = to_tiles(a, tile, device="cuda")
+    graph = KERNELS[kernel](nb, tile, store=store, panel_threads=PANEL_THREADS)
+    clock = HostClock()
+    clock.wrap_panels(graph)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with clock.gathers(lu if kernel == "lu" else qr):
+        t0 = time.perf_counter()
+        report = session.run(graph)
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return (store, report, enqueue_s, wall_s, launch_counts()["tile_matmul"],
+            clock, len(graph))
+
+
+def panel_factors(kernel: str, store) -> torch.Tensor:
+    """Everything an LU or QR run leaves behind, flat: the packed tiles
+    and, for QR, every panel's reflectors (V, V^T, T^T)."""
+    parts = [store.assemble().flatten()]
+    if kernel == "qr":
+        parts += [x.flatten() for k in range(store.nb)
+                  for x in store.vt_store[k]]
+    return torch.cat(parts)
+
+
+def panel_path_phase(kernel: str, a, warm, tile: int, smi: str):
+    """Factor ``a`` (LU or QR) under ``hybrid`` and ``history``, each after
+    a warm-up factorization of ``warm``, and check every run.  Returns
+    ({policy: row}, the hybrid run's :func:`panel_factors`)."""
+    from repro_torch import Session
+    from repro_torch.linalg import (lu_extract, qr_extract_r,
+                                    qr_reconstruct)
+
+    n = a.shape[0]
+    nb = n // tile
+    want_launches = expected_panel_launches(kernel, nb)
+    flops = (2.0 if kernel == "lu" else 4.0) * n ** 3 / 3.0
+    norm_a = torch.linalg.matrix_norm(a).item()
+    if kernel == "lu":
+        ref, _, info = torch.linalg.lu_factor_ex(a, pivot=False)
+        check(int(info.item()) == 0, "lu_factor_ex(pivot=False) failed")
+    else:
+        ref = torch.linalg.qr(a, mode="r").R.abs()
+    factors, runs = {}, {}
+    for policy in ("hybrid", "history"):
+        with Session(WORKERS, policy=policy) as session:
+            factor_panels(session, kernel, warm, tile)
+            store, report, enqueue_s, wall_s, launches, clock, n_tasks = \
+                factor_panels(session, kernel, a, tile)
+        if kernel == "lu":
+            lower, upper = lu_extract(store)
+            resid = torch.linalg.matrix_norm(a - lower @ upper).item() / norm_a
+            packed = store.assemble()
+            ref_diff = ((packed - ref).abs().max() / ref.abs().max()).item()
+            ref_name, ref_tol = "max_rel_diff_vs_lu_factor_ex", LU_REF_TOL
+            del lower, upper, packed
+        else:
+            resid = torch.linalg.matrix_norm(
+                a - qr_reconstruct(store)).item() / norm_a
+            r = qr_extract_r(store)
+            check(torch.equal(r, store.assemble()),
+                  f"qr {policy}: nonzeros below the diagonal of R")
+            ref_diff = (torch.linalg.matrix_norm(r.abs() - ref)
+                        / torch.linalg.matrix_norm(ref)).item()
+            ref_name, ref_tol = "rel_diff_abs_r_vs_torch_qr", QR_R_TOL
+            del r
+        flat = panel_factors(kernel, store)
+        row = {"phase": f"{kernel}_path", "policy": policy, "n": n,
+               "tile": tile, "nb": nb, "workers": WORKERS,
+               "panel_threads": PANEL_THREADS, "dtype": "float64",
+               "tasks": n_tasks, "wall_s": wall_s, "enqueue_s": enqueue_s,
+               "gflops": flops / wall_s / 1e9,
+               "tile_matmul_launches": launches,
+               "expected_launches": want_launches, "residual": resid,
+               ref_name: ref_diff, "ref_tol": ref_tol,
+               "steals": report.stats.get("steals"),
+               "gang_regions": report.stats.get("gang_regions"),
+               **clock.row(), "card": smi}
+        emit(row)
+        check(launches == want_launches,
+              f"{kernel} {policy}: tile_matmul launched {launches} times, "
+              f"expected {want_launches}")
+        check(resid <= 1e-12, f"{kernel} {policy}: residual {resid} > 1e-12")
+        check(ref_diff <= ref_tol, f"{kernel} {policy}: {ref_name} "
+              f"{ref_diff} > {ref_tol}")
+        check(bool(torch.isfinite(flat).all()),
+              f"{kernel} {policy}: the factors are not finite")
+        check(report.stats.get("gang_regions") == nb,
+              f"{kernel} {policy}: {report.stats.get('gang_regions')} gang "
+              f"regions, expected one per panel ({nb})")
+        factors[policy] = flat
+        runs[policy] = row
+        del store
+    check(torch.equal(factors["hybrid"], factors["history"]),
+          f"{kernel}: the hybrid and history factors are not bit-identical")
+    emit({"phase": f"{kernel}_policies_bit_identical", "ok": True})
+    return runs, factors["hybrid"]
+
+
+def panel_profile_phase(kernel: str, a, warm, tile: int, smi: str) -> None:
+    """One ``hybrid`` LU or QR run under ``torch.profiler``: device time by
+    kernel name and the device's busy share, beside the panels' host
+    seconds of the same run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import Session
+
+    with Session(WORKERS, policy="hybrid") as session:
+        factor_panels(session, kernel, warm, tile)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, enqueue_s, wall_s, _, clock, n_tasks = factor_panels(
+                session, kernel, a, tile)
+    rows = _device_rows(prof)
+    device_s = sum(r[0] for r in rows) / 1e6
+    check(bool(rows), f"the profiled {kernel} run shows no device work")
+    emit({"phase": f"{kernel}_profile", "policy": "hybrid", "n": a.shape[0],
+          "tile": tile, "tasks": n_tasks, "wall_s": wall_s,
+          "enqueue_s": enqueue_s, "device_busy_s": device_s,
+          "device_busy_share": device_s / wall_s, **clock.row(),
+          "top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
+                  for us, k, c in rows[:10]], "card": smi})
+
+
+def replay_phase(lu_a, warm_lu, spd, tile: int, dynamic_lu, smi: str):
+    """Record one ``hybrid`` LU run, replay it from an on-disk cache, replay
+    LU's static recording, and serve three Cholesky runs through a pool;
+    every factor must equal the dynamic run's bit for bit."""
+    import tempfile
+
+    from repro_torch import Session
+    from repro_torch.linalg import cholesky_extract, lu_static_recording
+    from repro_torch.replay import GraphCache
+
+    n = lu_a.shape[0]
+    nb = n // tile
+    row = {"phase": "replay", "n": n, "tile": tile, "workers": WORKERS,
+           "card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        with Session(WORKERS, record=True) as session:
+            factor_panels(session, "lu", warm_lu, tile)
+            store, report, enqueue_s, wall_s, _, clock, _ = factor_panels(
+                session, "lu", lu_a, tile)
+        rec = report.recording
+        check(report.plan.mode == "record" and rec is not None,
+              "the recorded LU run left no recording")
+        check(torch.equal(panel_factors("lu", store), dynamic_lu),
+              "the recorded LU run's factors differ from the dynamic run's")
+        GraphCache(tmp).store(rec)
+        row["record"] = {"wall_s": wall_s, "enqueue_s": enqueue_s,
+                         "steals": report.stats.get("steals"),
+                         "gang_regions": len(rec.gang_issue_order),
+                         **clock.row()}
+        with Session(WORKERS, scheduler="replay",
+                     cache=GraphCache(tmp)) as session:
+            factor_panels(session, "lu", warm_lu, tile)   # records the shape
+            store, report, enqueue_s, wall_s, launches, clock, _ = \
+                factor_panels(session, "lu", lu_a, tile)
+            issued = list(session._replay_executor(
+                report.recording).issued_gang_ids)
+    recorded = [rec.gang_placements[t].gang_id for t in rec.gang_issue_order]
+    row["replay"] = {"mode": report.plan.mode, "wall_s": wall_s,
+                     "enqueue_s": enqueue_s, "launches": launches,
+                     "issued_gang_ids_match": issued == recorded,
+                     **report.stats, **clock.row()}
+    check(report.plan.mode == "replay",
+          f"the replay session planned {report.plan.mode!r}, not a replay")
+    check(torch.equal(panel_factors("lu", store), dynamic_lu),
+          "the replayed LU factors differ from the dynamic run's")
+    check(issued == recorded,
+          "the replay did not issue the recorded gang order")
+
+    srec = lu_static_recording(nb, tile, n_workers=WORKERS,
+                               panel_threads=PANEL_THREADS)
+    scache = GraphCache()
+    scache.store(srec)
+    with Session(WORKERS, scheduler="replay", cache=scache) as session:
+        store, report, enqueue_s, wall_s, launches, clock, _ = factor_panels(
+            session, "lu", lu_a, tile)
+    row["static_replay"] = {"mode": report.plan.mode,
+                            "source": report.recording.source,
+                            "wall_s": wall_s, "enqueue_s": enqueue_s,
+                            "launches": launches, **report.stats,
+                            **clock.row()}
+    check(report.plan.mode == "replay" and report.recording.source == "static",
+          "LU's static recording was not replayed")
+    check(torch.equal(panel_factors("lu", store), dynamic_lu),
+          "the static replay's LU factors differ from the dynamic run's")
+    del store
+
+    want = math.comb(nb + 1, 3)
+    pool_runs, pool_factors = [], []
+    with Session(WORKERS, scheduler="pool") as session:
+        for _ in range(3):
+            L, report, enqueue_s, wall_s, launches, _ = factor(
+                session, spd, tile)
+            pool_runs.append({"pool_mode": report.stats["pool_mode"],
+                              "wall_s": wall_s, "enqueue_s": enqueue_s,
+                              "launches": launches,
+                              "replay_stats": report.stats.get("replay_stats")})
+            pool_factors.append(L)
+            check(launches == want, f"pool Cholesky: {launches} launches, "
+                  f"expected {want}")
+    row["pool_cholesky"] = pool_runs
+    emit(row)
+    modes = [r["pool_mode"] for r in pool_runs]
+    check(modes.count("replay") >= 1, f"the pool served no warm replay: "
+          f"{modes}")
+    check(all(torch.equal(L, pool_factors[0]) for L in pool_factors),
+          "the pool's Cholesky factors differ between runs")
+    check(bool(torch.isfinite(pool_factors[0]).all()),
+          "the pool's Cholesky factor is not finite")
+    del pool_factors
+    emit({"phase": "replay_bit_identical", "ok": True})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=7680,
@@ -1041,6 +1356,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=12,
                     help="Poisson serving phase: stream length")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1062,6 +1378,13 @@ def main() -> int:
                             (200, 136, 17, "sub_nn"), (20, 9, 72, "sub_t")):
         kernel_case(f"{GEMM_NAMES[mode]} f64 {M}x{N}x{K}", torch.float64,
                     M, N, K, mode=mode, seed=22, timed=False)
+    # QR's column update at its tallest: W = V^T A (K = n, and n/2 halfway
+    # through) and A - V Y (M = n)
+    for m in (args.n, args.n // 2):
+        kernel_case(f"qr V^T A f64 {t}x{t}x{m}", torch.float64, t, t, m,
+                    mode="mm", seed=25)
+    kernel_case(f"qr A - V Y f64 {args.n}x{t}x{t}", torch.float64, args.n,
+                t, t, mode="sub_nn", seed=26)
     for dtype in (torch.float32, torch.bfloat16):
         for (M, K, N) in ((256, 256, 256), (512, 256, 128)):
             kernel_case(f"tile_matmul {str(dtype).split('.')[-1]} "
@@ -1110,7 +1433,24 @@ def main() -> int:
     warm = random_spd(4 * t, seed=1, device="cuda")
     runs = main_path_phase(a, warm, t, smi)
     profile_phase(a, warm, t, smi)
-    del a, warm
+
+    from repro_torch.linalg import random_diagdom
+
+    lu_a = random_diagdom(args.n, seed=0, device="cuda")
+    lu_warm = random_diagdom(4 * t, seed=1, device="cuda")
+    lu_runs, lu_factors = panel_path_phase("lu", lu_a, lu_warm, t, smi)
+    panel_profile_phase("lu", lu_a, lu_warm, t, smi)
+    qr_a = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (args.n, args.n))).to("cuda")
+    qr_warm = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4 * t, 4 * t))).to("cuda")
+    qr_runs, _ = panel_path_phase("qr", qr_a, qr_warm, t, smi)
+    panel_profile_phase("qr", qr_a, qr_warm, t, smi)
+    del qr_a, qr_warm
+    replay_phase(lu_a, lu_warm, a, t, lu_factors, smi)
+    del a, warm, lu_a, lu_warm, lu_factors
+    gc.collect()
+    torch.cuda.empty_cache()
 
     batch_rows = {}
     for arch, poisson in SERVE_ARCHS:
@@ -1132,8 +1472,16 @@ def main() -> int:
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
 
+    # the tile GEMM carries three factorization paths; each was driven with
+    # the counts reset just before it and read just after (hybrid runs)
+    by_path = {"cholesky": runs["hybrid"]["tile_matmul_launches"],
+               "lu": lu_runs["hybrid"]["tile_matmul_launches"],
+               "qr": qr_runs["hybrid"]["tile_matmul_launches"]}
+    gemm = line("tile_matmul", main_case, sum(by_path.values()))
+    gemm["launches_by_path"] = by_path
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
-        line("tile_matmul", main_case, runs["hybrid"]["tile_matmul_launches"]),
+        gemm,
         line("flash_attention", flash_main,
              batch_rows["qwen3-14b"]["flash_attention_launches"]),
         line("decode_attention", decode_main,

@@ -1,27 +1,51 @@
 """Sessions, execution plans and run reports (API v2).
 
 One object owns scheduler selection and worker leasing:
+:class:`Session` replaces the v1 juggling of
+:class:`~repro_torch.core.runtime.Runtime` /
+:class:`~repro_torch.replay.executor.ReplayExecutor` /
+:class:`~repro_torch.replay.pool.ReplayPool` facades and the mutually-exclusive
+``run_graph(record=/replay=/cache=/pool=)`` kwargs:
 
-* ``Session(workers=4, scheduler="dynamic", policy=...)`` — the scheduler
-  is picked once, the victim policy is validated once
-  (:func:`repro_torch.core.policies.resolve`), and the session *leases* its
-  worker threads from the process-global
-  :class:`~repro_torch.exec.registry.CoreRegistry` (one warm core per
-  worker count per process; ``shared_cores=False`` opts into a private
-  core);
+* ``Session(workers=4, scheduler="dynamic" | "replay" | "pool",
+  policy=...)`` — the scheduler is picked once, the victim policy is
+  validated once (:func:`repro_torch.core.policies.resolve`), and the session
+  *leases* its worker threads from the process-global
+  :class:`~repro_torch.exec.registry.CoreRegistry` (one warm core per worker
+  count per process; ``shared_cores=False`` opts into a private core);
 * :meth:`Session.plan` turns "what will happen to this graph" into
-  inspectable data — a :class:`Plan`;
+  inspectable data — a :class:`Plan` saying **warm** (dynamic on warm
+  workers), **record** (instrumented dynamic run), **replay** (run a
+  recording; ``remapped_from`` set when it was re-keyed from another worker
+  count) or **pool** (the serving pool decides per shape) and *why*;
 * :meth:`Session.run` executes a graph (or a prepared plan) and returns a
-  :class:`RunReport` — results, scheduler statistics (steals / frame
-  suspensions) and wall clock.
+  :class:`RunReport` — results, the recording (if any), scheduler
+  statistics (steals / fallbacks / frame suspensions) and wall clock.
+  Nothing is smuggled through module globals: the v1
+  ``run_graph.last_recording`` escape hatch is dead on this path.
 
-The port runs the ``dynamic`` scheduler only.  The reference package's
-other modes reach modules that are not ported yet; each raises
-``NotImplementedError`` naming the ROADMAP item that will port it:
-``scheduler="replay" | "pool"``, ``record=True`` and ``cache=`` (record and
-replay, Queue A item 3), ``scheduler="compiled"`` (Queue A item 4),
-``trace=True`` (Queue A item 5), ``procs=`` and :meth:`Session.submit`
-(Queue A item 6).
+Scheduler semantics
+-------------------
+
+``dynamic``
+    Every run is scheduled dynamically on the leased warm workers.  With a
+    ``cache``, a run whose shape misses records and stores; later
+    same-shaped runs replay (the v1 ``run_graph(cache=...)`` contract).
+``replay``
+    Replay-first: cache hits replay on a persistent per-shape executor;
+    with ``allow_remap`` a recording at another worker count is re-keyed
+    (:func:`~repro_torch.replay.remap.remap_recording`) instead of re-recorded;
+    a true miss records this run.  Requires a ``cache`` (it is where
+    recordings live).
+``pool``
+    Requests route through a session-owned
+    :class:`~repro_torch.replay.pool.ReplayPool` (warmup → record → replay with
+    adaptive re-recording), the steady-state serving path.
+
+Not ported yet, each raising ``NotImplementedError`` that names the ROADMAP
+item that ports it: ``scheduler="compiled"`` (Queue A item 4, compiled
+plans), ``trace=True`` (Queue A item 5, trace assembly), ``procs=`` and
+:meth:`Session.submit` (Queue A item 6, worker processes).
 
 On a CUDA device ``RunReport.wall_s`` is host time until every task body
 has *enqueued* its work; time the device by bracketing the run with
@@ -45,10 +69,6 @@ _SCHEDULERS = ("dynamic", "replay", "pool", "compiled")
 #: reference scheduler modes and options the port does not run yet, with
 #: the ROADMAP item that ports each
 _NOT_PORTED = {
-    "replay": "ROADMAP Queue A item 3 (record and replay: replay/, exec/replay.py)",
-    "pool": "ROADMAP Queue A item 3 (record and replay: replay/pool.py)",
-    "record": "ROADMAP Queue A item 3 (record and replay: replay/recording.py)",
-    "cache": "ROADMAP Queue A item 3 (record and replay: replay/cache.py)",
     "compiled": "ROADMAP Queue A item 4 (compile/)",
     "trace": "ROADMAP Queue A item 5 (obs/trace.py, obs/perfetto.py)",
     "procs": "ROADMAP Queue A item 6 (mp/)",
@@ -69,11 +89,15 @@ class PlanError(RuntimeError):
 class Plan:
     """An inspectable execution decision for one graph shape.
 
-    ``mode`` is ``"warm"`` (dynamic scheduling on warm leased workers), the
-    only mode the port runs so far.  ``reason`` says why the session chose
+    ``mode`` is one of ``"warm"`` (dynamic scheduling on warm leased
+    workers), ``"record"`` (dynamic with instrumentation; the recording is
+    returned in the report and stored in the session cache), ``"replay"``
+    (drive the attached ``recording``; ``remapped_from`` names the worker
+    count it was re-keyed from, if any) or ``"pool"`` (the serving pool
+    owns the per-shape lifecycle).  ``reason`` says why the session chose
     it.  Plans are data: print them, test against them, or pass one back to
-    :meth:`Session.run` — including against a *different same-shaped
-    graph* (an iterative sweep plans once and executes per iteration).
+    :meth:`Session.run` — including against a *different same-shaped graph*
+    (an iterative sweep plans once and executes per iteration).
     """
 
     mode: str
@@ -81,13 +105,21 @@ class Plan:
     policy: str
     graph: TaskGraph
     digest: Optional[str] = None
+    recording: Optional[Any] = None          # repro_torch.replay.Recording
+    remapped_from: Optional[int] = None
+    record: bool = False
     reason: str = ""
     #: precomputed structural GraphKey (``Session.run(key=...)``) — lets a
-    #: loop rebuilding one shape skip the per-request hash
+    #: steady-state serving loop skip the per-request hash; safety is not
+    #: skipped (replay still enforces the 1:1 task cover, so a wrong key
+    #: fails loudly)
     key: Optional[Any] = None                # repro_torch.replay.GraphKey
 
     def describe(self) -> str:
-        return (f"Plan[{self.mode}] graph={self.graph.name!r} "
+        extra = ""
+        if self.mode == "replay" and self.remapped_from is not None:
+            extra = f" (remapped {self.remapped_from}->{self.n_workers})"
+        return (f"Plan[{self.mode}{extra}] graph={self.graph.name!r} "
                 f"workers={self.n_workers} policy={self.policy}"
                 + (f" — {self.reason}" if self.reason else ""))
 
@@ -100,13 +132,21 @@ class RunReport:
     """Everything one execution produced, returned by :meth:`Session.run`.
 
     ``results`` maps tid -> result; prefer ``report[handle]`` /
-    :meth:`result` with the :class:`~repro_torch.api.graph.TaskHandle` the
-    graph builder returned.  ``stats`` carries the dynamic scheduler's
-    counters (``steals``/``frame_suspends``/resource grants).
+    :meth:`result` with the :class:`~repro_torch.api.graph.TaskHandle` the graph
+    builder returned.  ``recording`` is the run's
+    :class:`~repro_torch.replay.Recording` when one was produced or driven
+    (record/replay/pool modes) — the value v1 leaked through
+    ``run_graph.last_recording``.  ``stats`` carries scheduler counters:
+    dynamic runs report ``steals``/``frame_suspends``; replays report
+    ``fallback_steals``/``stalls``/``skips``/``run_ahead``/
+    ``frame_suspends``; pool runs add the pool entry's serving counters
+    plus ``pool_mode`` and (for replay serves) a ``replay_stats`` snapshot
+    explaining fallback-heavy rows.
     """
 
     results: Dict[int, Any]
     plan: Plan
+    recording: Optional[Any]
     wall_s: float
     scheduler: str
     n_workers: int
@@ -125,9 +165,10 @@ class RunReport:
         return getattr(ref, "tid", ref) in self.results
 
     def summary(self) -> str:
+        rec = "yes" if self.recording is not None else "no"
         return (f"RunReport[{self.plan.mode}] {len(self.results)} tasks in "
                 f"{self.wall_s * 1e3:.2f} ms on {self.n_workers} workers "
-                f"({self.scheduler}); stats: {self.stats}")
+                f"({self.scheduler}); recording: {rec}; stats: {self.stats}")
 
 
 class Session:
@@ -135,8 +176,8 @@ class Session:
     any number of graph executions (see module docstring).
 
     Use as a context manager (or call :meth:`close`): the session releases
-    its core lease on exit.  Runs on one session serialize; use one session
-    per concurrent stream.
+    its core lease — and shuts down its pool/executors — on exit.  Runs on
+    one session serialize; use one session per concurrent stream.
     """
 
     def __init__(
@@ -147,11 +188,14 @@ class Session:
         policy: str = "hybrid",
         gang_default: bool = True,
         seed: int = 0,
-        cache: Optional[Any] = None,
+        cache: Optional[Any] = None,           # repro_torch.replay.GraphCache
+        allow_remap: bool = True,
         record: bool = False,
         trace: bool = False,
         shared_cores: bool = True,
+        stall_timeout: float = 1e-3,
         block_poll: float = 0.05,
+        pool_kwargs: Optional[Dict[str, Any]] = None,
         procs: Optional[int] = None,
     ):
         if workers < 1:
@@ -160,40 +204,55 @@ class Session:
             raise ValueError(
                 f"unknown scheduler {scheduler!r}; valid schedulers: "
                 f"{', '.join(_SCHEDULERS)}")
-        if scheduler != "dynamic":
-            raise not_ported(scheduler)
+        if scheduler == "compiled":
+            raise not_ported("compiled")
+        if trace:
+            raise not_ported("trace")
+        if procs is not None:
+            raise not_ported("procs")
         resolve_policy(policy)       # typos fail HERE, with the valid names
-        for what, value in (("cache", cache), ("procs", procs)):
-            if value is not None:
-                raise not_ported(what)
-        for what, flag in (("record", record), ("trace", trace)):
-            if flag:
-                raise not_ported(what)
+        if scheduler == "replay" and cache is None:
+            from ..replay.cache import GraphCache
+            cache = GraphCache()     # recordings need a home; private one
         self.workers = workers
         self.scheduler = scheduler
         self.policy = policy
         self.gang_default = gang_default
         self.seed = seed
+        self.cache = cache
+        self.allow_remap = allow_remap
+        self.record_default = record
         self.shared_cores = shared_cores
+        self.stall_timeout = stall_timeout
         self.block_poll = block_poll
+        self.pool_kwargs = dict(pool_kwargs or {})
 
         self._lock = threading.RLock()
         self._closed = False
         self._core: Optional[Any] = None                 # ExecutorCore lease
         self._runtime: Optional[Any] = None              # dynamic facade
+        self._executors: Dict[str, Any] = {}             # digest -> executor
+        self._pool: Optional[Any] = None                 # ReplayPool
 
     # ------------------------------------------------------------------
     # lifecycle
     def close(self) -> None:
-        """Release the core lease.  Shared cores stay warm for other
-        lessees; the last lessee's release stops the threads (which keeps
-        the suite's thread-leak check honest)."""
+        """Release the core lease and stop session-owned executors.  Shared
+        cores stay warm for other lessees; the last lessee's release stops
+        the threads (which keeps the suite's thread-leak check honest)."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+            executors = list(self._executors.values())
+            self._executors.clear()
+            pool, self._pool = self._pool, None
             runtime, self._runtime = self._runtime, None
             core, self._core = self._core, None
+        for ex in executors:
+            ex.shutdown()
+        if pool is not None:
+            pool.shutdown()
         if runtime is not None:
             runtime.shutdown()
         if core is not None:
@@ -241,6 +300,45 @@ class Session:
                     core=self._leased_core())
             return self._runtime
 
+    def _replay_executor(self, recording):
+        """Persistent per-shape executor leasing the session core; rebuilt
+        when the shape's recording changes (e.g. a re-record)."""
+        from ..replay.executor import ReplayExecutor
+        with self._lock:
+            self._require_open()
+            ex = self._executors.get(recording.digest)
+            if ex is not None and ex.recording is not recording:
+                ex.shutdown()
+                ex = None
+            if ex is None:
+                ex = ReplayExecutor(
+                    recording, stall_timeout=self.stall_timeout,
+                    check_digest=False, core=self._leased_core())
+                ex.start()
+                self._executors[recording.digest] = ex
+            return ex
+
+    def _serving_pool(self):
+        with self._lock:
+            self._require_open()
+            if self._pool is None:
+                from ..replay.pool import ReplayPool
+                kwargs = dict(self.pool_kwargs)
+                kwargs.setdefault("allow_remap", self.allow_remap)
+                kwargs.setdefault("stall_timeout", self.stall_timeout)
+                kwargs.setdefault("shared_cores", self.shared_cores)
+                self._pool = ReplayPool(self.cache, **kwargs)
+            return self._pool
+
+    @property
+    def pool(self):
+        """The session's serving pool (``scheduler="pool"`` only) — exposed
+        for ``describe()`` / ``register_builder``."""
+        if self.scheduler != "pool":
+            raise PlanError(
+                f"session scheduler is {self.scheduler!r}; no pool exists")
+        return self._serving_pool()
+
     def submit(self, graph: TaskGraph, **kwargs: Any):
         """Asynchronous submission lives in :mod:`repro_torch.mp`, which is
         not ported yet."""
@@ -258,19 +356,66 @@ class Session:
              key: Optional[Any] = None) -> Plan:
         """Decide — without executing — how :meth:`run` would serve
         ``graph``; returns the decision as an inspectable :class:`Plan`.
-        ``key`` supplies the graph's structural
-        :class:`~repro_torch.replay.GraphKey` when the caller already knows
-        it, so planning skips the hash."""
+        Side-effect-free: nothing is recorded, stored or leased.  ``key``
+        supplies the graph's structural :class:`~repro_torch.replay.GraphKey`
+        when the caller already knows it (a serving loop rebuilding one
+        shape) so planning skips the per-request hash."""
         self._require_open()
-        if record:
-            raise not_ported("record")
         tg = self._as_taskgraph(graph)
+        base = dict(n_workers=self.workers, policy=self.policy, graph=tg,
+                    key=key)
+        if self.scheduler == "pool":
+            return Plan(mode="pool", digest=getattr(key, "digest", None),
+                        reason=(
+                            "serving pool owns the shape lifecycle "
+                            "(warmup -> record -> replay, adaptive "
+                            "re-record)"), **base)
         if key is None:
             from ..replay.graph_key import graph_key
             key = graph_key(tg)
-        return Plan(mode="warm", n_workers=self.workers, policy=self.policy,
-                    graph=tg, key=key, digest=key.digest,
-                    reason="dynamic scheduling on warm leased workers")
+            base["key"] = key
+        base["digest"] = key.digest
+        want_record = self.record_default if record is None else record
+        rec = (self.cache.lookup(key, self.workers, self.policy)
+               if self.cache is not None else None)
+        if rec is not None:
+            return Plan(mode="replay", recording=rec,
+                        reason="cache hit for this shape at this worker "
+                               "count", **base)
+        if self.scheduler == "replay":
+            if self.allow_remap and self.cache is not None:
+                remapped, src = self._try_remap(key)
+                if remapped is not None:
+                    return Plan(
+                        mode="replay", recording=remapped, remapped_from=src,
+                        reason=f"cache held the shape at {src} workers; "
+                               f"re-keyed to {self.workers}", **base)
+            return Plan(mode="record", record=True,
+                        reason="no recording for this shape — record this "
+                               "run, replay the next", **base)
+        if self.cache is not None:
+            return Plan(mode="record", record=True,
+                        reason="cache miss — record so later same-shaped "
+                               "runs replay", **base)
+        if want_record:
+            return Plan(mode="record", record=True,
+                        reason="recording requested", **base)
+        return Plan(mode="warm",
+                    reason="dynamic scheduling on warm leased workers",
+                    **base)
+
+    def _try_remap(self, key):
+        from ..replay.remap import (RemapError, nearest_worker_count,
+                                    remap_recording)
+        donors = self.cache.candidates(key, self.policy)
+        donors.pop(self.workers, None)
+        while donors:
+            src = nearest_worker_count(list(donors), self.workers)
+            try:
+                return remap_recording(donors.pop(src), self.workers), src
+            except RemapError:
+                continue
+        return None, None
 
     # ------------------------------------------------------------------
     # execution
@@ -285,34 +430,77 @@ class Session:
     ) -> RunReport:
         """Execute ``graph`` (planned now) or a prepared ``plan`` (against
         ``graph`` when given — a sweep plans once, runs per iteration);
-        returns a :class:`RunReport`."""
+        returns a :class:`RunReport`.  ``key`` forwards a precomputed
+        :class:`~repro_torch.replay.GraphKey` to :meth:`plan` (and, for pool
+        sessions, to the pool) so steady-state loops skip hashing."""
         if plan is None:
             if graph is None:
                 raise TypeError("run() needs a graph or a plan")
             plan = self.plan(graph, record=record, key=key)
         tg = self._as_taskgraph(graph) if graph is not None else plan.graph
-        if plan.mode != "warm":
-            raise PlanError(f"unknown plan mode {plan.mode!r}")
         with self._lock:
             self._require_open()
             t0 = time.perf_counter()
-            rt = self._dynamic_runtime()
-            results = rt.run(tg, timeout=timeout)
-            return RunReport(results=results, plan=plan,
-                             wall_s=time.perf_counter() - t0,
-                             scheduler=self.scheduler, n_workers=self.workers,
-                             stats=dict(rt.last_stats))
+            if plan.mode == "pool":
+                report = self._run_pool(plan, tg, timeout)
+            elif plan.mode == "replay":
+                report = self._run_replay(plan, tg, timeout)
+            elif plan.mode in ("warm", "record"):
+                report = self._run_dynamic(plan, tg, timeout)
+            else:
+                raise PlanError(f"unknown plan mode {plan.mode!r}")
+            report.wall_s = time.perf_counter() - t0
+            return report
 
     def execute(self, plan: Plan, *, timeout: float = 300.0) -> RunReport:
         """Alias: run a prepared plan against its own graph."""
         return self.run(plan=plan, timeout=timeout)
 
-    def map(self, builder, inputs, *, key: Optional[Any] = None,
-            timeout: float = 300.0, procs: Optional[int] = None):
+    def _run_dynamic(self, plan: Plan, tg: TaskGraph,
+                     timeout: float) -> RunReport:
+        rt = self._dynamic_runtime()
+        do_record = plan.mode == "record"
+        results = rt.run(tg, timeout=timeout, record=do_record)
+        recording = rt.last_recording if do_record else None
+        if do_record and recording is not None and self.cache is not None:
+            self.cache.store(recording)
+        stats = dict(rt.last_stats)
+        return RunReport(results=results, plan=plan, recording=recording,
+                         wall_s=0.0, scheduler=self.scheduler,
+                         n_workers=self.workers, stats=stats)
+
+    def _run_replay(self, plan: Plan, tg: TaskGraph,
+                    timeout: float) -> RunReport:
+        recording = plan.recording
+        if recording is None:
+            raise PlanError("replay plan carries no recording")
+        if tg is not plan.graph:
+            # executing a prepared plan against a fresh same-shaped graph:
+            # re-key THIS graph (the plan's digest covered the original)
+            from ..replay.graph_key import graph_key
+            if graph_key(tg).digest != recording.digest:
+                raise PlanError(
+                    f"plan's recording is for digest "
+                    f"{recording.digest[:16]} but the graph hashes "
+                    "differently")
+        if plan.remapped_from is not None and self.cache is not None:
+            # adopt the re-keyed recording so the next plan() is a pure hit
+            self.cache.store(recording)
+        ex = self._replay_executor(recording)
+        results = ex.run(tg, timeout=timeout)
+        return RunReport(results=results, plan=plan, recording=recording,
+                         wall_s=0.0, scheduler=self.scheduler,
+                         n_workers=self.workers, stats=dict(ex.stats))
+
+    def map(self, builder, inputs, *, record: Optional[bool] = None,
+            key: Optional[Any] = None, timeout: float = 300.0,
+            procs: Optional[int] = None):
         """Run a sweep of same-shaped graphs through one plan: ``builder``
         maps each input to a graph; the first graph is planned once and the
-        plan is reused for every later input.  Returns the per-input
-        :class:`RunReport` list."""
+        plan is reused for every later input (re-planned a single time when
+        the first run records, so the rest of the sweep replays).  Returns
+        the per-input :class:`RunReport` list.  ``procs`` (sharding the
+        sweep over worker processes) raises ``NotImplementedError``."""
         self._require_open()
         if procs is not None:
             raise not_ported("procs")
@@ -321,6 +509,24 @@ class Session:
         for x in inputs:
             g = self._as_taskgraph(builder(x))
             if plan is None:
-                plan = self.plan(g, key=key)
-            reports.append(self.run(graph=g, plan=plan, timeout=timeout))
+                plan = self.plan(g, record=record, key=key)
+                reports.append(self.run(graph=g, plan=plan, timeout=timeout))
+                if plan.mode == "record":
+                    plan = None    # re-plan once: the next call hits the cache
+            else:
+                reports.append(self.run(graph=g, plan=plan, timeout=timeout))
         return reports
+
+    def _run_pool(self, plan: Plan, tg: TaskGraph,
+                  timeout: float) -> RunReport:
+        pool = self._serving_pool()
+        outcome = pool.serve(
+            tg, self.workers, policy=self.policy,
+            gang_default=self.gang_default, seed=self.seed, timeout=timeout,
+            key=plan.key)
+        stats = dict(outcome.stats)
+        stats["pool_mode"] = outcome.mode
+        return RunReport(results=outcome.results, plan=plan,
+                         recording=outcome.recording, wall_s=0.0,
+                         scheduler=self.scheduler, n_workers=self.workers,
+                         stats=stats)

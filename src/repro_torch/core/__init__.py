@@ -10,6 +10,9 @@ Public API:
   work-stealing runtime (Algorithms 1 & 2).
 * :class:`Simulator` / :func:`simulate` — deterministic discrete-event
   simulator of the same scheduler.
+* :class:`ListScheduler` / :class:`StaticSchedule` — frozen schedules
+  (wave decomposition, collective total order) that seed replay
+  recordings.
 * victim policies: ``history`` / ``random`` / ``hybrid`` (Algorithm 2).
 """
 
@@ -26,6 +29,13 @@ from .policies import (
 )
 from .runtime import Runtime, run_graph
 from .simulator import DeadlockError, Simulator, simulate
+from .static_schedule import (
+    GangReservation,
+    ListScheduler,
+    StaticSchedule,
+    issue_offsets_from_schedule,
+    microbatch_overlap_graph,
+)
 from .taskgraph import (
     Channel,
     ChannelEmpty,
@@ -47,14 +57,17 @@ __all__ = [
     "ChannelFull",
     "DeadlockError",
     "FrameResume",
+    "GangReservation",
     "GangState",
     "HistoryPolicy",
     "HybridPolicy",
+    "ListScheduler",
     "ParallelSpec",
     "PolicyError",
     "RandomPolicy",
     "Runtime",
     "Simulator",
+    "StaticSchedule",
     "Task",
     "TaskContext",
     "TaskEvent",
@@ -64,7 +77,9 @@ __all__ = [
     "WaitAnyRequest",
     "available_policies",
     "is_eligible_to_sched",
+    "issue_offsets_from_schedule",
     "make_policy",
+    "microbatch_overlap_graph",
     "register_policy",
     "resolve_policy",
     "run_graph",

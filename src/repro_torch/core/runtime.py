@@ -41,6 +41,8 @@ documented in DESIGN.md §2.
 
 from __future__ import annotations
 
+import threading
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 from ..exec.core import ExecutorCore, GangRegion
@@ -93,6 +95,9 @@ class Runtime:
         self._dispatch = DynamicDispatch(
             n_workers, policy=policy, gang_default=gang_default, seed=seed,
             steal_backoff=steal_backoff, trace=trace)
+        #: the :class:`~repro_torch.replay.Recording` of the most recent
+        #: ``run(record=True)``
+        self.last_recording = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -130,13 +135,21 @@ class Runtime:
             record: bool = False) -> Dict[int, Any]:
         """Execute the graph; returns {tid: result}.  Raises DeadlockError if
         the Fig. 1 state is reached, or re-raises the first task failure.
-        Repeated calls reuse the same warm worker threads.  ``record=True``
-        needs record-and-replay, which is not ported yet."""
-        if record:
-            from ..api.session import not_ported
-            raise not_ported("record")
+        Repeated calls reuse the same warm worker threads.
+
+        With ``record=True`` the run is instrumented (per-worker execution
+        order, steals, gang placements and fork order) and a
+        :class:`repro_torch.replay.Recording` is left in
+        ``self.last_recording`` for the replay executor / graph cache."""
         graph.validate()
-        return self._core.run(self._dispatch, graph, timeout=timeout)
+        self._dispatch.set_recording(record)
+        try:
+            results = self._core.run(self._dispatch, graph, timeout=timeout)
+            if record:
+                self.last_recording = self._dispatch.build_recording(graph)
+            return results
+        finally:
+            self._dispatch.set_recording(False)
 
     # ------------------------------------------------------------------
     # parallel regions (called from task bodies via ctx.parallel)
@@ -155,22 +168,112 @@ class Runtime:
                                        spawn_ctx=spawn_ctx)
 
 
-def run_graph(
-    graph: TaskGraph,
-    n_workers: int,
-    *,
-    policy: str = "hybrid",
-    gang_default: bool = True,
-    seed: int = 0,
-    timeout: float = 300.0,
-) -> Dict[int, Any]:
-    """The v1 convenience entry point: one dynamic execution on a
-    short-lived :class:`~repro_torch.api.Session` lease; returns
-    ``{tid: result}``.  The reference's ``record=``/``replay=``/``cache=``/
-    ``pool=``/``trace=`` keywords arrive with record-and-replay and tracing
-    (see :mod:`repro_torch.api.session`)."""
-    from ..api.session import Session
+class _RunGraphShim:
+    """The v1 convenience entry point, now a thin shim over the v2 session
+    API (:mod:`repro_torch.api`).
 
-    with Session(n_workers, policy=policy, gang_default=gang_default,
-                 seed=seed) as session:
-        return session.run(graph, timeout=timeout).results
+    ``run_graph(graph, n)`` runs one dynamic execution on a short-lived
+    :class:`~repro_torch.api.Session` lease.  The old mutually-exclusive mode
+    kwargs map onto :class:`~repro_torch.api.Plan` decisions:
+
+    * ``record=True``  -> ``Session.run(graph, record=True)``;
+    * ``replay=rec``   -> a ``Plan(mode="replay", recording=rec)``;
+    * ``cache=c``      -> ``Session(cache=c)`` (record on miss, replay on
+      hit);
+    * ``pool=p``       -> ``p.serve(...)`` (``record``/``replay``/
+      ``cache``/``trace`` are the pool's own business and rejected when
+      combined with it).
+
+    ``trace=True`` raises ``NotImplementedError`` (ROADMAP Queue A item 5),
+    as :class:`~repro_torch.api.Session` does.
+
+    The v1 ``run_graph.last_recording`` module global is **gone from the
+    library path**; this shim keeps a deprecation-warned, read-only,
+    *thread-local* alias for old callers.  New code reads the recording off
+    the :class:`~repro_torch.api.RunReport` a session returns.
+    """
+
+    def __init__(self) -> None:
+        self._tls = threading.local()
+
+    # -- the deprecated alias -------------------------------------------
+    @property
+    def last_recording(self):
+        """Deprecated: the recording involved in this thread's most recent
+        ``run_graph`` call.  Use ``Session.run(...).recording``."""
+        warnings.warn(
+            "run_graph.last_recording is deprecated; use the RunReport "
+            "returned by repro_torch.Session.run (report.recording)",
+            DeprecationWarning, stacklevel=2)
+        return getattr(self._tls, "recording", None)
+
+    def _note(self, recording: Any) -> None:
+        self._tls.recording = recording
+
+    # -- the call --------------------------------------------------------
+    def __call__(
+        self,
+        graph: TaskGraph,
+        n_workers: int,
+        *,
+        policy: str = "hybrid",
+        gang_default: bool = True,
+        seed: int = 0,
+        trace: bool = False,
+        timeout: float = 300.0,
+        record: bool = False,
+        replay: Any = None,
+        cache: Any = None,
+        pool: Any = None,
+    ) -> Dict[int, Any]:
+        from ..api.session import Plan, Session
+        from .policies import resolve as resolve_policy
+
+        resolve_policy(policy)            # typos fail here, with valid names
+        if pool is not None:
+            if record or replay is not None or cache is not None or trace:
+                raise ValueError(
+                    "run_graph(pool=...) owns recording/replay/caching "
+                    "itself; record/replay/cache/trace cannot be combined "
+                    "with a pool")
+            out = pool.serve(graph, n_workers, policy=policy,
+                             gang_default=gang_default, seed=seed,
+                             timeout=timeout)
+            # v1 callers also read pool.last_recording after the call
+            pool.last_recording = out.recording
+            self._note(out.recording)
+            return out.results
+        if replay is not None:
+            if record or cache is not None:
+                warnings.warn(
+                    "run_graph(replay=...) ignores record/cache; use a "
+                    "Session with a Plan instead", DeprecationWarning,
+                    stacklevel=2)
+            replay.validate_against(graph)     # v1 checked the digest here
+            session = Session(replay.n_workers, scheduler="replay",
+                              policy=policy, gang_default=gang_default,
+                              seed=seed)
+            try:
+                plan = Plan(mode="replay", n_workers=replay.n_workers,
+                            policy=policy, graph=graph, digest=replay.digest,
+                            recording=replay,
+                            reason="run_graph(replay=...) shim")
+                report = session.run(plan=plan, timeout=timeout)
+            finally:
+                session.close()
+            self._note(report.recording)
+            return report.results
+        session = Session(n_workers, scheduler="dynamic", policy=policy,
+                          gang_default=gang_default, seed=seed, cache=cache,
+                          trace=trace)
+        try:
+            report = session.run(graph, record=record or None,
+                                 timeout=timeout)
+        finally:
+            session.close()
+        self._note(report.recording)
+        return report.results
+
+
+#: v1 entry point (shim; see :class:`_RunGraphShim`).
+run_graph = _RunGraphShim()

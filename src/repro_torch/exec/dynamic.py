@@ -177,9 +177,12 @@ class DynamicDispatch(DispatchStrategy):
         # conflict-aware resource grants (declarative `uses=`; ROADMAP 3)
         self.arbiter = ResourceArbiter()
 
-        # always-on lightweight run counters (surfaced in RunReport.stats)
+        # always-on lightweight run counters (surfaced in RunReport.stats);
+        # gang_regions counts the Algorithm-1 regions forked (the port's
+        # addition: it shows the LU/QR panels ran as gangs)
         self.run_stats: Dict[str, int] = {
-            "steals": 0, "steal_attempts": 0, "frame_suspends": 0}
+            "steals": 0, "steal_attempts": 0, "frame_suspends": 0,
+            "gang_regions": 0}
 
     # ------------------------------------------------------------------
     # DispatchStrategy interface
@@ -227,7 +230,8 @@ class DynamicDispatch(DispatchStrategy):
             self._rec_wait_choices = {}
         self.run_stats = {"steals": 0, "steal_attempts": 0,
                           "frame_suspends": 0, "resource_acquires": 0,
-                          "resource_waits": 0, "resource_releases": 0}
+                          "resource_waits": 0, "resource_releases": 0,
+                          "gang_regions": 0}
         self.arbiter.begin(graph)
         self.recorder.begin_run()
         # master thread (worker 0's queue) receives the roots
@@ -687,6 +691,7 @@ class DynamicDispatch(DispatchStrategy):
                 self._rec_forks.append((spawn_task.tid, gang_id, n_threads))
             self.recorder.emit(w, EV_GANG_RESERVE, "", region.rid, n_threads)
             if use_gang:
+                self.run_stats["gang_regions"] += 1
                 reserved = self.gang_state.get_workers(w, n_threads)
                 self.gang_state.account_gang(
                     [reserved[i % len(reserved)] for i in range(n_threads)])
@@ -809,14 +814,47 @@ class DynamicDispatch(DispatchStrategy):
         region.thread_done(ult.thread_num, result)
 
     # ------------------------------------------------------------------
-    # flight-recorder assembly and recording assembly: their consumers
-    # (obs/trace.py, replay/recording.py) are not ported yet
+    # flight-recorder assembly: its consumer (obs/trace.py) is not ported
     def take_trace(self):
         """Assemble the last run's events into a runtime trace."""
         from ..api.session import not_ported
         raise not_ported("trace")
 
+    # ------------------------------------------------------------------
+    # recording assembly (record-and-replay, repro_torch.replay)
     def build_recording(self, graph: TaskGraph):
         """Assemble a replay Recording from the instrumentation buffers."""
-        from ..api.session import not_ported
-        raise not_ported("record")
+        from ..replay.graph_key import graph_key
+        from ..replay.recording import GangPlacement, Recording
+
+        placements: Dict[int, GangPlacement] = {}
+        for spawn_tid, gang_id, n_threads in self._rec_forks:
+            if spawn_tid in placements:
+                # recordings key regions by spawning task; two forks from one
+                # task would be indistinguishable on replay — refuse loudly
+                raise ValueError(
+                    f"task {spawn_tid} forked more than one parallel region; "
+                    "record-and-replay supports one region per task")
+            placements[spawn_tid] = GangPlacement(
+                spawn_tid, gang_id, [-1] * n_threads)
+        for w, entries in enumerate(self._rec_entries):
+            for e in entries:
+                if isinstance(e, tuple) and e[0] in placements:
+                    placements[e[0]].workers[e[1]] = w
+        steals = [(w, victim, e)
+                  for w, lst in enumerate(self._rec_steals)
+                  for victim, e in lst]
+        return Recording(
+            digest=graph_key(graph).digest,
+            graph_name=graph.name,
+            n_workers=self.n_workers,
+            policy=self.policy_name,
+            worker_orders=[list(e) for e in self._rec_entries],
+            gang_placements=placements,
+            gang_issue_order=[f[0] for f in self._rec_forks],
+            steals=steals,
+            collective_order=list(self._rec_comms),
+            wait_choices=dict(self._rec_wait_choices),
+            resource_grants=self.arbiter.grant_log(),
+            source="dynamic",
+        )

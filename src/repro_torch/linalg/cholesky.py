@@ -164,8 +164,9 @@ def cholesky_graph_key(
 
     Computed from a body-less cost-model build (no tile store needed): the
     key ignores callables, so it is identical to the key of a numeric build
-    with the same shape parameters, so an iterative sweep can key its
-    recordings on it once record and replay are ported."""
+    with the same shape parameters — an iterative sweep keys its
+    :class:`~repro_torch.replay.GraphCache` lookups on this and hits the
+    recording from step 1 on every later step."""
     from ..replay import graph_key
     return graph_key(build_cholesky_graph(nb, b, cost=cost, ranks=ranks, comm=comm))
 

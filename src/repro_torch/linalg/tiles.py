@@ -4,7 +4,8 @@ the SLATE-style factorization task graphs, on PyTorch tensors.
 Tiles live on one device: the CUDA device unless the caller asks for the
 CPU (``device="cpu"``).  The trailing-update GEMMs go through the
 hand-written kernel (:mod:`repro_torch.kernels.tile_matmul`); ``potrf`` and
-``trsm`` were never TPU kernels and are ``torch.linalg`` calls.
+the two ``trsm`` forms were never TPU kernels and are ``torch.linalg``
+calls.
 
 Streams: every worker thread launches on the device's default stream (a
 thread that never selects a stream gets it from
@@ -18,7 +19,7 @@ synchronisation.  Per-worker streams with event waits are later work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +62,18 @@ class TileStore:
         return torch.cat([
             torch.cat([self.tiles[(i, j)] for j in range(self.nb)], dim=1)
             for i in range(self.nb)], dim=0)
+
+
+class ShapeOnlyStore:
+    """Stand-in for a :class:`TileStore` carrying only ``(nb, b)``.  Task
+    bodies never run against it — it exists so the *numeric* variant of a
+    factorization graph can be built purely for its structural
+    :func:`~repro_torch.replay.graph_key` (numeric and cost-model builds
+    differ structurally)."""
+
+    def __init__(self, nb: int, b: int):
+        self.nb = nb
+        self.b = b
 
 
 def _own_tile(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -169,3 +182,30 @@ def tile_gemm_nn_sub(c: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
     """C - A @ B, written into ``c`` in place."""
     return tile_matmul(a, b, c, alpha=-1.0, beta=1.0, out=c)
+
+
+def tile_trsm_left_lower_unit(l: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Solve L X = A with unit-diagonal lower L (LU row update)."""
+    return torch.linalg.solve_triangular(l, a, upper=False,
+                                         unitriangular=True).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the host-side panels' bridge (the panels are numpy, as in the reference)
+# ---------------------------------------------------------------------------
+def column_to_host(tiles: List[torch.Tensor]) -> np.ndarray:
+    """The block column stacked from ``tiles`` as a writable numpy array:
+    one ``torch.cat`` and one ``.cpu()`` — on CUDA, one copy that waits for
+    every kernel queued before it on the stream."""
+    return torch.cat(tiles).cpu().numpy()
+
+
+def column_from_host(tiles: List[torch.Tensor], panel: np.ndarray) -> None:
+    """Write the stacked ``panel`` back into ``tiles`` in place: one
+    host-to-device copy, then one ``copy_`` per tile, so every tile keeps
+    its own storage."""
+    b = tiles[0].shape[0]
+    dev = torch.from_numpy(panel).to(device=tiles[0].device,
+                                     dtype=tiles[0].dtype)
+    for idx, t in enumerate(tiles):
+        t.copy_(dev[idx * b:(idx + 1) * b])

@@ -12,8 +12,7 @@ step as a :class:`~repro_torch.core.taskgraph.TaskGraph` — the batch is split 
 runtime and, because every step builds the *same graph shape* (names, kinds,
 costs, dependencies — the callables differ but
 :func:`~repro_torch.replay.graph_key` ignores callables), the whole decode
-loop can replay from one recording once record-and-replay is ported
-(ROADMAP Queue A item 3).
+loop replays from one recording (``Session(scheduler="pool")``).
 
 State lives in a mutable :class:`DecodeState` (the serving analogue of the
 tile stores the factorization graphs close over): each shard owns its KV

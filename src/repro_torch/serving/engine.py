@@ -22,11 +22,12 @@ graphs executed by a caller-owned
   object serves every step with ``k`` lanes.  The steady-state loop does
   no graph construction and no hashing — the precomputed key rides
   :meth:`Session.run(key=...) <repro_torch.api.session.Session.run>`.
-* **warm replay under shape churn** — the reference's ``scheduler="pool"``
-  replays each lane count from a recording; the port's sessions run the
-  ``dynamic`` scheduler only (record-and-replay is ROADMAP Queue A item 3),
-  so ``report.stats.get("pool_mode")`` is always None and no step counts
-  as warm.
+* **warm replay under shape churn** — with ``scheduler="pool"`` each lane
+  count is one :class:`~repro_torch.replay.ReplayPool` shape: the pool
+  records a shape the first time the batch hits it and replays it every
+  time the churn returns there, remapping recordings across worker counts
+  (:func:`~repro_torch.replay.remap.remap_recording`) when the cache was
+  filled by a replica with a different core count.
 
 Each shard of work is one request's private ``decode -> sample`` chain;
 the step's join is a channel-fed suspendable gather frame (samples stream
@@ -96,7 +97,8 @@ class ContinuousBatchingEngine:
     ----------
     session:
         Caller-owned :class:`~repro_torch.api.session.Session` executing
-        the decode-step graphs (``scheduler="dynamic"``).  With
+        the decode-step graphs.  ``scheduler="pool"`` gives warm replays
+        per batch shape; ``"dynamic"`` is the scheduling baseline.  With
         ``max_batch=1`` the engine degrades to FCFS per-request serving —
         the baseline continuous batching is compared against.
     decode_fn / prefill_fn / sample_fn:

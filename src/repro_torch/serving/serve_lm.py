@@ -8,8 +8,10 @@ of prompts, then decodes ``--tokens`` tokens per request, under one of:
   reference, which jits it; PyTorch runs it eagerly);
 * ``dynamic`` — each decode step is a task graph (per-shard decode/sample
   plus a gather join) run by a ``Session(scheduler="dynamic")``;
-* ``pool``    — raises ``NotImplementedError``: record-and-replay is not
-  ported yet (ROADMAP Queue A item 3), so ``dynamic`` is the default here.
+* ``pool``    — the same graphs served by a ``Session(scheduler="pool")``:
+  each batch shape is recorded once and replayed warm after that;
+  ``--cache-dir`` keeps the recordings on disk (in the reference package's
+  format, so one directory serves both packages).
 
 ``--arrivals poisson`` serves a seeded Poisson stream of single-prompt
 requests through the continuous-batching engine instead.
@@ -20,14 +22,17 @@ and depth in its own dtype, on the CUDA device: ``--reduced`` takes the
 reference's small smoke configuration, ``--layers N`` cuts the depth,
 ``--device cpu`` runs on the host.  Prompts are drawn with numpy from seed
 1 (the reference draws them with ``jax.random``, so the ids differ).
-``--cache-dir``, ``--trace`` and ``--procs`` raise ``NotImplementedError``
-(ROADMAP Queue A items 3, 5 and 6).
+``--trace`` and ``--procs`` raise ``NotImplementedError`` (ROADMAP Queue A
+items 5 and 6).  ``dynamic`` stays the default here, as the CUDA runs of
+earlier slices used it.
 
 Run:  python -m repro_torch.serving.serve_lm --reduced --device cpu
       python -m repro_torch.serving.serve_lm --arch zamba2-7b --reduced \
           --device cpu
       python -m repro_torch.serving.serve_lm --arrivals poisson \\
           --rate 100 --requests 12
+      python -m repro_torch.serving.serve_lm --reduced --device cpu \\
+          --scheduler pool --cache-dir /tmp/graphs
 """
 
 from __future__ import annotations
@@ -44,11 +49,27 @@ from ..configs import get_config
 from ..linalg.tiles import resolve_device
 from ..models import (build_decode_graph, decode_step, greedy_sample,
                       init_params, make_decode_state, prefill)
+from ..replay import GraphCache
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _session(args, **pool_kwargs) -> Session:
+    """The decode session: ``--cache-dir`` backs the pool's recordings."""
+    pool = args.scheduler == "pool"
+    cache = GraphCache(args.cache_dir) if args.cache_dir and pool else None
+    kwargs = {"pool_kwargs": pool_kwargs} if pool else {}
+    return Session(args.workers, scheduler=args.scheduler, cache=cache,
+                   **kwargs)
+
+
+def _print_pool(args, session: Session) -> None:
+    if args.scheduler == "pool":
+        for ckey, stats in session.pool.describe().items():
+            print(f"pool[{ckey[:20]}…]: {stats}")
 
 
 def serve_poisson(args, cfg, model, device):
@@ -68,8 +89,7 @@ def serve_poisson(args, cfg, model, device):
           f"scheduler={args.scheduler} workers={args.workers} "
           f"max_batch={args.max_batch} " + workload.describe())
     max_len = args.prompt_len + args.tokens + 1
-    with Session(args.workers, scheduler=args.scheduler,
-                 cache=args.cache_dir) as session:
+    with _session(args, warmup_runs=0) as session:
         engine = ContinuousBatchingEngine(
             session,
             lambda cache, tok: decode_step(model, cfg, cache, tok),
@@ -78,6 +98,7 @@ def serve_poisson(args, cfg, model, device):
             max_batch=args.max_batch)
         engine.prime()  # step graphs + keys built before traffic starts
         report = engine.run(workload.requests())
+        _print_pool(args, session)
     print(report.describe())
     s = report.summary()
     print(f"per-token p50/p99: {s['p50_tok_ms']:.2f}/{s['p99_tok_ms']:.2f} "
@@ -117,14 +138,14 @@ def serve_batch(args, cfg, model, device):
                                   max_len=max_len, device=device)
         _sync(device)
         t_prefill = time.perf_counter() - t0
-        with Session(args.workers, scheduler=args.scheduler,
-                     cache=args.cache_dir) as session:
+        with _session(args) as session:
             t0 = time.perf_counter()
             for _ in range(args.tokens - 1):
                 session.run(build_decode_graph(
                     state, lambda p, c, t: decode_step(p, cfg, c, t)))
             _sync(device)
             t_decode = time.perf_counter() - t0
+            _print_pool(args, session)
         gen = state.tokens()
 
     print(f"prefill: {t_prefill*1e3:.1f} ms "
@@ -144,11 +165,12 @@ def main(argv=None):
     ap.add_argument("--scheduler", choices=("jit", "dynamic", "pool"),
                     default="dynamic")
     ap.add_argument("--workers", type=int, default=2,
-                    help="runtime workers for the dynamic scheduler")
+                    help="runtime workers for dynamic/pool scheduling")
     ap.add_argument("--shards", type=int, default=0,
                     help="batch shards per decode graph (default: batch)")
     ap.add_argument("--cache-dir", default=None,
-                    help="on-disk GraphCache dir (not ported)")
+                    help="on-disk GraphCache dir (pool): recordings persist "
+                         "across runs")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="export a Perfetto trace (not ported)")
     ap.add_argument("--arrivals", choices=("batch", "poisson"),

@@ -117,6 +117,101 @@ def test_cholesky_on_card_launches_the_kernel_for_every_update(cuda, nb, b):
     assert ((L - ref).abs().max() / ref.abs().max()).item() <= 1e-10
 
 
+@pytest.mark.parametrize("M,N,K,with_c", [
+    (192, 192, 7680, False),   # QR's W = V^T A at its tallest
+    (192, 192, 3840, False),
+    (7680, 192, 192, True),    # QR's A - V Y
+])
+def test_qr_tall_gemm_shapes_match_plain_version(cuda, M, N, K, with_c):
+    rng = np.random.default_rng(11)
+    a = _randn(rng, (M, K), torch.float64, cuda)
+    b = _randn(rng, (K, N), torch.float64, cuda)
+    c = _randn(rng, (M, N), torch.float64, cuda) if with_c else None
+    kw = dict(alpha=-1.0, beta=1.0) if with_c else {}
+    expect = tile_matmul_ref(a, b, c, **kw)
+    runs = []
+    for _ in range(2):
+        if with_c:
+            got = c.clone()
+            tm.tile_matmul(a, b, got, out=got, **kw)
+        else:
+            got = tm.tile_matmul(a, b)
+        runs.append(got)
+    torch.cuda.synchronize()
+    err = ((runs[0] - expect).abs().max() / expect.abs().max()).item()
+    assert err <= F64_RTOL
+    assert torch.equal(runs[0], runs[1])
+
+
+def _panel_matrix(kernel, n, device):
+    from repro_torch.linalg import random_diagdom
+    if kernel == "lu":
+        return random_diagdom(n, seed=0, device=device)
+    return torch.from_numpy(
+        np.random.default_rng(0).standard_normal((n, n))).to(device)
+
+
+@pytest.mark.parametrize("kernel", ["lu", "qr"])
+def test_lu_qr_on_card_match_the_cpu_run(cuda, kernel):
+    """nb = 6: the card's factors (tile GEMM kernel) against the same run
+    on the CPU (its plain version), and the exact launch count."""
+    from repro_torch.linalg import KERNELS, qr_reconstruct
+    from repro_torch.linalg.qr import COL_UPDATE_LAUNCHES
+
+    nb, b = 6, 32
+    outs = {}
+    for device in ("cpu", "cuda"):
+        a = _panel_matrix(kernel, nb * b, device)
+        store = to_tiles(a, b, device=device)
+        before = launch_counts()["tile_matmul"]
+        with repro_torch.Session(4, policy="hybrid") as s:
+            report = s.run(KERNELS[kernel](nb, b, store=store,
+                                           panel_threads=3))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launched = launch_counts()["tile_matmul"] - before
+        assert report.stats["gang_regions"] == nb
+        packed = store.assemble()
+        if kernel == "qr":
+            packed = torch.cat([packed, qr_reconstruct(store)])
+        outs[device] = (packed.cpu(), launched)
+    want = (sum(m * m for m in range(1, nb)) if kernel == "lu"
+            else COL_UPDATE_LAUNCHES * math.comb(nb, 2))
+    assert outs["cpu"][1] == 0 and outs["cuda"][1] == want
+    ref = outs["cpu"][0]
+    assert ((outs["cuda"][0] - ref).abs().max() / ref.abs().max()).item() <= 1e-10
+
+
+def test_replay_on_card_is_bit_identical(cuda):
+    """A recorded LU run with gang panels and a pool's Cholesky serves on
+    the card: replays give the dynamic run's bits."""
+    from repro_torch.linalg import build_lu_graph, lu_extract
+    from repro_torch.replay import replay_graph
+
+    nb, b = 6, 32
+    a = _panel_matrix("lu", nb * b, "cuda")
+    st = to_tiles(a, b)
+    with repro_torch.Session(4, record=True) as s:
+        rec = s.run(build_lu_graph(nb, b, store=st, panel_threads=3)).recording
+    st2 = to_tiles(a, b)
+    replay_graph(build_lu_graph(nb, b, store=st2, panel_threads=3), rec)
+    torch.cuda.synchronize()
+    assert torch.equal(lu_extract(st)[1], lu_extract(st2)[1])
+    assert torch.equal(lu_extract(st)[0], lu_extract(st2)[0])
+
+    spd = random_spd(nb * b, seed=0)
+    outs, modes = [], []
+    with repro_torch.Session(4, scheduler="pool") as s:
+        for _ in range(3):
+            store = to_tiles(spd, b)
+            modes.append(s.run(build_cholesky_graph(nb, b, store=store))
+                         .stats["pool_mode"])
+            outs.append(cholesky_extract(store))
+    torch.cuda.synchronize()
+    assert modes == ["warmup", "record", "replay"]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
 def _randn(rng, shape, dtype, device):
     return torch.from_numpy(rng.standard_normal(shape)).to(device, dtype)
 

@@ -15,6 +15,12 @@ def test_port_imports_without_jax_or_reference_package():
         "import repro_torch, repro_torch.linalg, repro_torch.kernels\n"
         "import repro_torch.models, repro_torch.serving, repro_torch.configs\n"
         "import repro_torch.serving.serve_lm, repro_torch.models.ssm\n"
+        "import repro_torch.linalg.lu, repro_torch.linalg.qr\n"
+        "import repro_torch.linalg.panels, repro_torch.linalg.dist\n"
+        "import repro_torch.core.static_schedule, repro_torch.exec.replay\n"
+        "import repro_torch.replay.recording, repro_torch.replay.cache\n"
+        "import repro_torch.replay.executor, repro_torch.replay.remap\n"
+        "import repro_torch.replay.pool\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
