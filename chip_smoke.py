@@ -33,6 +33,16 @@ Phases, each printed as one JSON line:
    task bodies times the session's planning and the runtime's dispatch
    alone; then one more ``hybrid`` run under ``torch.profiler``: device
    time by kernel and the device's busy share;
+   compiled: the same matrix through ``Session(4, scheduler="compiled")``
+   (run 1 records, run 2 captures every fused segment as a CUDA graph and
+   replays it, runs 3-4 replay), each factor bit-identical to the
+   ``hybrid`` one with exact launches and as many captured graphs as
+   capturable segments; a run on a second matrix, after which run 3's
+   factor must be unchanged; one profiled compiled run, whose GEMM kernels
+   the profiler must count to the same number;
+   trace: one ``trace=True`` run exported as Perfetto JSON, which must
+   validate, reconcile with the run's counters and show no worker busy
+   longer than the wall;
 5. the LU and QR paths, at the Cholesky path's size: a float64 tiled LU
    (no pivoting) of ``random_diagdom(n, seed=0)`` and a Householder QR of
    a standard normal matrix from numpy seed 0, built with
@@ -51,7 +61,10 @@ Phases, each printed as one JSON line:
    recording (``lu_static_recording``) replayed, each bit-identical to the
    dynamic factors and the first with the recorded gang issue order; then
    three Cholesky runs through ``Session(4, scheduler="pool")``, which
-   must warm up, record and replay, with the same factors each time;
+   must warm up, record and replay, with the same factors each time; then
+   the LU recording compiled (one ``scheduler="compiled"`` run) and QR at
+   half the order recorded and compiled, each bit-identical to its
+   dynamic factors with exact launches;
 7. the serving paths, each model at full width and depth in bfloat16,
    random weights made on the card from seed 0, and freed before the
    next: qwen3-14b (dense), zamba2-7b (hybrid: Mamba2 layers and a shared
@@ -62,7 +75,10 @@ Phases, each printed as one JSON line:
    the two token streams must be bit-identical, every logit finite and
    the kernels' launches exact (every SSM layer's prefill launches the
    SSD scan; every attention layer, or use of the shared block, launches
-   flash attention per prompt and decode attention per lane-step);
+   flash attention per prompt and decode attention per lane-step); for
+   qwen3-14b and zamba2-7b the decode once more through a pool that
+   promotes the step graph to a compiled plan after two clean replays
+   (``compile_after=2``), whose tokens must equal the plain loop's;
 8. qwen3-14b and zamba2-7b, Poisson: the ``ContinuousBatchingEngine``
    with ``max_batch=4`` over ``serve_lm``'s default stream (rate 100/s,
    12 requests, budgets 2..8) with prompts of 256..1024 tokens; every
@@ -1066,7 +1082,7 @@ def main_path_phase(a, warm, tile: int, smi: str):
     check(torch.equal(factors["hybrid"], factors["history"]),
           "the hybrid and history factors are not bit-identical")
     emit({"phase": "policies_bit_identical", "ok": True})
-    return runs
+    return runs, factors["hybrid"]
 
 
 def expected_panel_launches(kernel: str, nb: int) -> int:
@@ -1346,6 +1362,308 @@ def replay_phase(lu_a, warm_lu, spd, tile: int, dynamic_lu, smi: str):
           "the pool's Cholesky factor is not finite")
     del pool_factors
     emit({"phase": "replay_bit_identical", "ok": True})
+    return rec
+
+
+def _compiled_row(report, cache, launches, want_launches, name):
+    """Check one compiled run's report; return its driver counters.  Every
+    capturable segment must hold its CUDA graph, and no run may fall back
+    to replay."""
+    stats = report.stats
+    check("compiled_fallback" not in stats,
+          f"{name}: the compiled run fell back: "
+          f"{stats.get('compiled_fallback')}")
+    check(report.plan.mode == "compiled",
+          f"{name}: planned {report.plan.mode!r}, not compiled")
+    meta = cache.lookup_plan_meta(report.recording.digest,
+                                  report.recording.n_workers, "hybrid")
+    check(meta is not None, f"{name}: no plan meta in the cache")
+    check(stats["captured_graphs"] == meta["jit_segments"] > 0,
+          f"{name}: {stats['captured_graphs']} captured graphs, "
+          f"{meta['jit_segments']} capturable segments")
+    check(launches == want_launches, f"{name}: tile_matmul launched "
+          f"{launches} times, expected {want_launches}")
+    return {"mode": report.plan.mode,
+            "captured_graphs": stats["captured_graphs"],
+            "graphs_captured_this_run": stats["graphs_captured_this_run"],
+            "jit_segments": meta["jit_segments"],
+            "fused_segments": meta["n_fused"],
+            "fused_tasks": meta["n_fused_tasks"],
+            "opaque_tasks": meta["n_opaque"],
+            "capture_s": stats["capture_s"], "bind_s": stats["bind_s"],
+            "driver_wall_s": stats["wall_s"], "body_s": stats["body_s"],
+            "dispatch_overhead_fraction":
+                stats["dispatch_overhead_fraction"],
+            "launches": launches}
+
+
+def _cholesky_run(session, a, tile: int):
+    """One Cholesky run through ``session``; returns (store, report,
+    enqueue seconds, synchronised wall seconds, launches)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.linalg import build_cholesky_graph, to_tiles
+
+    store = to_tiles(a, tile, device="cuda")
+    graph = build_cholesky_graph(a.shape[0] // tile, tile, store=store)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    report = session.run(graph)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return store, report, enqueue_s, wall_s, launch_counts()["tile_matmul"]
+
+
+def compiled_phase(a, tile: int, dynamic_l, smi: str) -> int:
+    """The Cholesky path under ``scheduler="compiled"``: run 1 records, run
+    2 captures each fused segment as a CUDA graph and replays it, runs 3-4
+    replay only; each factor equals the dynamic ``hybrid`` factor bit for
+    bit.  Then a run on another matrix, after which run 3's factor must be
+    unchanged, and one profiled run.  Returns a replay run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import Session
+    from repro_torch.linalg import (build_cholesky_graph, cholesky_extract,
+                                    random_spd, to_tiles)
+    from repro_torch.replay import GraphCache
+
+    n = a.shape[0]
+    want = math.comb(n // tile + 1, 3)
+    cache = GraphCache()
+    rows, kept = [], None
+    with Session(WORKERS, scheduler="compiled", cache=cache) as session:
+        for run in range(4):
+            store, report, enqueue_s, wall_s, launches = _cholesky_run(
+                session, a, tile)
+            row = {"run": run + 1, "wall_s": wall_s, "enqueue_s": enqueue_s,
+                   "gflops": n ** 3 / 3.0 / wall_s / 1e9}
+            if run == 0:
+                check(report.plan.mode == "record",
+                      f"compiled run 1 planned {report.plan.mode!r}")
+                check(launches == want, f"compiled record run: {launches} "
+                      f"launches, expected {want}")
+                row.update(mode="record", launches=launches)
+            else:
+                row.update(_compiled_row(report, cache, launches, want,
+                                         f"compiled Cholesky run {run + 1}"))
+                check(row["graphs_captured_this_run"] ==
+                      (row["jit_segments"] if run == 1 else 0),
+                      f"run {run + 1} captured "
+                      f"{row['graphs_captured_this_run']} graphs")
+            check(torch.equal(cholesky_extract(store), dynamic_l),
+                  f"compiled run {run + 1}'s factor differs from the dynamic "
+                  "hybrid factor")
+            rows.append(row)
+            if run == 2:
+                kept = store
+        other = random_spd(n, seed=2, device="cuda")
+        store, report, _, _, _ = _cholesky_run(session, other, tile)
+        check(report.plan.mode == "compiled", "the run on a second matrix "
+              f"planned {report.plan.mode!r}")
+        other_l = cholesky_extract(store)
+        resid = (torch.linalg.matrix_norm(other - other_l @ other_l.mT)
+                 / torch.linalg.matrix_norm(other)).item()
+        check(resid <= 1e-12, f"compiled run on a second matrix: residual "
+              f"{resid}")
+        check(torch.equal(cholesky_extract(kept), dynamic_l),
+              "run 3's factor changed when a later compiled run replayed "
+              "the same graphs on another matrix")
+        del other, other_l, store
+        store = to_tiles(a, tile, device="cuda")
+        graph = build_cholesky_graph(n // tile, tile, store=store)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            report = session.run(graph)
+            enqueue_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        check(torch.equal(cholesky_extract(store), dynamic_l),
+              "the profiled compiled run's factor differs")
+    prof_rows = _device_rows(prof)
+    device_s = sum(r[0] for r in prof_rows) / 1e6
+    gemm = sum(c for _, k, c in prof_rows if "dmma_kernel" in k)
+    emit({"phase": "compiled", "n": n, "tile": tile, "workers": WORKERS,
+          "dtype": "float64", "runs": rows,
+          "second_matrix_residual": resid, "run3_factor_unchanged": True,
+          "profiled": {"wall_s": wall_s, "enqueue_s": enqueue_s,
+                       "device_busy_s": device_s,
+                       "device_busy_share": device_s / wall_s,
+                       "gemm_device_launches": gemm,
+                       "top": [{"name": k[:80], "count": c,
+                                "device_ms": us / 1e3}
+                               for us, k, c in prof_rows[:8]]},
+          "card": smi})
+    check(gemm == want, f"the profiler saw {gemm} GEMM kernels in a compiled "
+          f"run, expected {want}")
+    return rows[-1]["launches"]
+
+
+def compiled_panel_phase(kernel: str, a, tile: int, recording, dynamic, smi):
+    """LU or QR under ``scheduler="compiled"``.  With ``recording`` (LU: the
+    one ``replay_phase`` made) the first run already compiles; without
+    (QR) the first run records and the second compiles.  The compiled
+    factors must equal ``dynamic`` (or the record run's) bit for bit.
+    Returns the compiled run's launches."""
+    from repro_torch import Session
+    from repro_torch.replay import GraphCache
+
+    n = a.shape[0]
+    nb = n // tile
+    want = expected_panel_launches(kernel, nb)
+    cache = GraphCache()
+    if recording is not None:
+        cache.store(recording)
+    row = {"phase": f"compiled_{kernel}", "n": n, "tile": tile, "nb": nb,
+           "workers": WORKERS, "panel_threads": PANEL_THREADS,
+           "dtype": "float64", "card": smi}
+    with Session(WORKERS, scheduler="compiled", cache=cache) as session:
+        if recording is None:
+            store, report, enqueue_s, wall_s, launches, clock, _ = \
+                factor_panels(session, kernel, a, tile)
+            check(report.plan.mode == "record",
+                  f"{kernel}: the first compiled-session run planned "
+                  f"{report.plan.mode!r}")
+            check(launches == want, f"{kernel} record run: {launches} "
+                  f"launches, expected {want}")
+            dynamic = panel_factors(kernel, store)
+            row["record"] = {"wall_s": wall_s, "enqueue_s": enqueue_s,
+                             "launches": launches, **clock.row()}
+            del store
+        store, report, enqueue_s, wall_s, launches, clock, _ = \
+            factor_panels(session, kernel, a, tile)
+    row["compiled"] = {"wall_s": wall_s, "enqueue_s": enqueue_s,
+                       **_compiled_row(report, cache, launches, want,
+                                       f"compiled {kernel}"),
+                       **clock.row()}
+    row["bit_identical"] = bool(torch.equal(panel_factors(kernel, store),
+                                            dynamic))
+    emit(row)
+    check(row["bit_identical"], f"compiled {kernel}: the factors differ from "
+          "the dynamic run's")
+    return launches
+
+
+def trace_phase(a, tile: int, smi: str) -> None:
+    """One traced dynamic Cholesky run, exported as Perfetto JSON to a
+    temporary file: it must validate, its steal markers reconcile with the
+    run's counters, and no worker is busy longer than the wall."""
+    import os
+    import tempfile
+
+    from repro_torch import Session
+    from repro_torch.core.tracing import BUSY_KINDS, KIND_STEAL
+    from repro_torch.obs import load_trace, validate_trace_json, write_trace
+
+    with Session(WORKERS, trace=True) as session:
+        store, report, enqueue_s, wall_s, launches = _cholesky_run(
+            session, a, tile)
+    trace = report.trace
+    check(trace is not None, "the traced run returned no trace")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cholesky_trace.json")
+        t0 = time.perf_counter()
+        write_trace(trace, path, extra={"n": a.shape[0], "tile": tile})
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        info = validate_trace_json(path)
+        round_trip = load_trace(path) == trace
+    busy = [sum(v for k, v in w.items() if k in BUSY_KINDS)
+            for w in trace.per_worker_breakdown()]
+    mismatch = trace.reconcile(report.stats)
+    emit({"phase": "trace", "n": a.shape[0], "tile": tile,
+          "workers": WORKERS, "wall_s": wall_s, "enqueue_s": enqueue_s,
+          "launches": launches, "events": len(trace.events),
+          "dropped": trace.dropped, "file_bytes": size,
+          "write_s": write_s, "slices": info["slices"],
+          "flows": info["flows"], "steals": report.stats.get("steals"),
+          "steal_markers": trace.count(KIND_STEAL),
+          "counters_mismatch": {k: list(v) for k, v in mismatch.items()},
+          "worker_busy_s": busy, "makespan_s": trace.makespan,
+          "round_trip_exact": round_trip,
+          "dispatch_overhead_fraction": trace.dispatch_overhead_fraction(),
+          "card": smi})
+    check(trace.count(KIND_STEAL) == report.stats.get("steals"),
+          f"{trace.count(KIND_STEAL)} steal markers in the trace, "
+          f"{report.stats.get('steals')} steals counted")
+    check(not mismatch, f"trace counters disagree with the run's: {mismatch}")
+    check(all(b <= wall_s for b in busy),
+          f"a worker is busy longer than the wall: {busy} > {wall_s}")
+    check(round_trip, "load_trace did not rebuild the written trace")
+    check(launches == math.comb(a.shape[0] // tile + 1, 3),
+          f"the traced run launched {launches} GEMMs")
+
+
+def serving_compiled_phase(cfg, model, batch_row, batch_tokens, smi) -> int:
+    """The batch phase's decode again, through a pool that promotes the
+    step graph to a compiled plan after two clean replays; the compiled
+    serves' tokens must equal the plain loop's.  Returns the decode
+    attention launches of the decode."""
+    from repro_torch import Session
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import (build_decode_graph, decode_step,
+                                    make_decode_state)
+
+    max_len = PROMPT + TOKENS + 1
+    steps = TOKENS - 1
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32),
+        device=SERVE_DEVICE)
+
+    def dec(p, c, t):
+        return decode_step(p, cfg, c, t)
+
+    state = make_decode_state(model, cfg, {"tokens": prompts},
+                              n_shards=BATCH, max_len=max_len,
+                              device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    modes, step_s = [], []
+    with Session(SERVE_WORKERS, scheduler="pool",
+                 pool_kwargs={"warmup_runs": 0, "compile_after": 2}) as s:
+        reset_launch_counts()
+        t_all = time.perf_counter()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            report = s.run(build_decode_graph(state, dec))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            modes.append(report.stats["pool_mode"])
+        wall_s = time.perf_counter() - t_all
+        launches = launch_counts()
+        stats = report.stats
+    tokens = state.tokens()
+    compiled = [t for t, m in zip(step_s, modes) if m == "compiled"]
+    row = {"phase": "serving_compiled", "arch": cfg.name,
+           "workers": SERVE_WORKERS, "batch": BATCH, "prompt": PROMPT,
+           "tokens": TOKENS, "modes": {m: modes.count(m) for m in
+                                       dict.fromkeys(modes)},
+           "compiled_serves": stats.get("compiled_serves"),
+           "compiles": stats.get("compiles"),
+           "compiled_stats": stats.get("compiled_stats"),
+           "decode_wall_s": wall_s,
+           "compiled_lane_step_ms": (sum(compiled) / len(compiled) / BATCH
+                                     * 1e3) if compiled else None,
+           "plain_lane_step_ms": batch_row["plain_lane_step_ms"],
+           "session2_lane_step_ms": batch_row["lane_step_ms"],
+           "launches": launches,
+           "tokens_bit_identical": bool(torch.equal(tokens, batch_tokens)),
+           "card": smi}
+    row["compiled_over_plain"] = (row["compiled_lane_step_ms"]
+                                  / row["plain_lane_step_ms"]
+                                  if compiled else None)
+    emit(row)
+    check(bool(compiled) and (stats.get("compiled_serves") or 0) > 0,
+          f"{cfg.name}: no decode step was served compiled: {modes}")
+    check(row["tokens_bit_identical"],
+          f"{cfg.name}: the compiled serves' tokens differ from the plain "
+          "loop's")
+    want = expected_launches(cfg, 0, BATCH * steps)
+    check(launches == want, f"{cfg.name} compiled serving launched "
+          f"{launches}, expected {want}")
+    del state
+    return launches["decode_attention"]
 
 
 def main() -> int:
@@ -1431,8 +1749,11 @@ def main() -> int:
     check(args.n % t == 0, f"n={args.n} is not a multiple of tile={t}")
     a = random_spd(args.n, seed=0, device="cuda")
     warm = random_spd(4 * t, seed=1, device="cuda")
-    runs = main_path_phase(a, warm, t, smi)
+    runs, dynamic_l = main_path_phase(a, warm, t, smi)
     profile_phase(a, warm, t, smi)
+    compiled_launches = compiled_phase(a, t, dynamic_l, smi)
+    del dynamic_l
+    trace_phase(a, t, smi)
 
     from repro_torch.linalg import random_diagdom
 
@@ -1447,8 +1768,18 @@ def main() -> int:
     qr_runs, _ = panel_path_phase("qr", qr_a, qr_warm, t, smi)
     panel_profile_phase("qr", qr_a, qr_warm, t, smi)
     del qr_a, qr_warm
-    replay_phase(lu_a, lu_warm, a, t, lu_factors, smi)
+    lu_rec = replay_phase(lu_a, lu_warm, a, t, lu_factors, smi)
+    compiled_lu_launches = compiled_panel_phase("lu", lu_a, t, lu_rec,
+                                                lu_factors, smi)
     del a, warm, lu_a, lu_warm, lu_factors
+    # QR compiled at half the order: its record run and its compiled run
+    # are each set by the host panels (~30 s at n = 7680)
+    half = args.n // 2 // t * t
+    qr_half = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (half, half))).to("cuda")
+    compiled_qr_launches = compiled_panel_phase("qr", qr_half, t, None, None,
+                                                smi)
+    del qr_half
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1458,6 +1789,11 @@ def main() -> int:
         batch_rows[arch], state = serving_batch_phase(cfg, model,
                                                       floor_bytes, smi)
         if poisson:
+            # the compiled serves run for the models with a Poisson phase:
+            # qwen3-14b (dense) and zamba2-7b (hybrid)
+            batch_rows[arch]["compiled_decode_attention_launches"] = \
+                serving_compiled_phase(cfg, model, batch_rows[arch],
+                                       state.tokens(), smi)
             serving_poisson_phase(cfg, model, args.requests, smi)
         serving_profile_phase(cfg, model, state, floor_bytes, smi)
         del model, state                  # free the card for the next model
@@ -1476,16 +1812,25 @@ def main() -> int:
     # the counts reset just before it and read just after (hybrid runs)
     by_path = {"cholesky": runs["hybrid"]["tile_matmul_launches"],
                "lu": lu_runs["hybrid"]["tile_matmul_launches"],
-               "qr": qr_runs["hybrid"]["tile_matmul_launches"]}
+               "qr": qr_runs["hybrid"]["tile_matmul_launches"],
+               "cholesky_compiled": compiled_launches,
+               "lu_compiled": compiled_lu_launches,
+               f"qr_compiled_n{half}": compiled_qr_launches}
     gemm = line("tile_matmul", main_case, sum(by_path.values()))
     gemm["launches_by_path"] = by_path
+    qwen = batch_rows["qwen3-14b"]
+    decode = line("decode_attention", decode_main,
+                  qwen["decode_attention_launches"]
+                  + qwen["compiled_decode_attention_launches"])
+    decode["launches_by_path"] = {
+        "serving": qwen["decode_attention_launches"],
+        "serving_compiled": qwen["compiled_decode_attention_launches"]}
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         gemm,
         line("flash_attention", flash_main,
              batch_rows["qwen3-14b"]["flash_attention_launches"]),
-        line("decode_attention", decode_main,
-             batch_rows["qwen3-14b"]["decode_attention_launches"]),
+        decode,
         line("ssd_scan", ssd_main,
              batch_rows["zamba2-7b"]["ssd_scan_launches"])]})
     emit({"ok": True, "device": {"platform": "gpu",

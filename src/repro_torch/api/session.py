@@ -41,11 +41,21 @@ Scheduler semantics
     Requests route through a session-owned
     :class:`~repro_torch.replay.pool.ReplayPool` (warmup → record → replay with
     adaptive re-recording), the steady-state serving path.
+``compiled``
+    Replay, minus the scheduler: a cache-hit recording is lowered once
+    (:func:`repro_torch.compile.compile_recording`) into a fused serial
+    program and every later same-shaped run executes on the
+    single-threaded :class:`~repro_torch.compile.CompiledExecutor` — no
+    dispatch, no GIL contention, bit-identical results.  On a CUDA device
+    each fused segment of capturable kernels runs as one CUDA graph.  A
+    true miss records this run and compiles the next; a compiled plan that
+    stalls (stale shape) falls back to replay for that run.
 
-Not ported yet, each raising ``NotImplementedError`` that names the ROADMAP
-item that ports it: ``scheduler="compiled"`` (Queue A item 4, compiled
-plans), ``trace=True`` (Queue A item 5, trace assembly), ``procs=`` and
-:meth:`Session.submit` (Queue A item 6, worker processes).
+``trace=True`` turns the flight recorder on: ``RunReport.trace`` is the
+run's assembled :class:`~repro_torch.obs.trace.RuntimeTrace`
+(``repro_torch.obs.write_trace`` exports it for Perfetto).  ``procs=`` and
+:meth:`Session.submit` (worker processes) are not ported yet: they raise
+``NotImplementedError`` naming ROADMAP Queue A item 6.
 
 On a CUDA device ``RunReport.wall_s`` is host time until every task body
 has *enqueued* its work; time the device by bracketing the run with
@@ -66,11 +76,9 @@ __all__ = ["Plan", "PlanError", "RunReport", "Session"]
 
 _SCHEDULERS = ("dynamic", "replay", "pool", "compiled")
 
-#: reference scheduler modes and options the port does not run yet, with
-#: the ROADMAP item that ports each
+#: reference options the port does not run yet, with the ROADMAP item that
+#: ports each
 _NOT_PORTED = {
-    "compiled": "ROADMAP Queue A item 4 (compile/)",
-    "trace": "ROADMAP Queue A item 5 (obs/trace.py, obs/perfetto.py)",
     "procs": "ROADMAP Queue A item 6 (mp/)",
 }
 
@@ -93,8 +101,10 @@ class Plan:
     workers), ``"record"`` (dynamic with instrumentation; the recording is
     returned in the report and stored in the session cache), ``"replay"``
     (drive the attached ``recording``; ``remapped_from`` names the worker
-    count it was re-keyed from, if any) or ``"pool"`` (the serving pool
-    owns the per-shape lifecycle).  ``reason`` says why the session chose
+    count it was re-keyed from, if any), ``"compiled"`` (lower the attached
+    ``recording`` into a fused serial program and run it schedulerless —
+    :mod:`repro_torch.compile`) or ``"pool"`` (the serving pool owns the
+    per-shape lifecycle).  ``reason`` says why the session chose
     it.  Plans are data: print them, test against them, or pass one back to
     :meth:`Session.run` — including against a *different same-shaped graph*
     (an iterative sweep plans once and executes per iteration).
@@ -141,7 +151,10 @@ class RunReport:
     ``fallback_steals``/``stalls``/``skips``/``run_ahead``/
     ``frame_suspends``; pool runs add the pool entry's serving counters
     plus ``pool_mode`` and (for replay serves) a ``replay_stats`` snapshot
-    explaining fallback-heavy rows.
+    explaining fallback-heavy rows.  ``trace`` is the run's assembled
+    :class:`~repro_torch.obs.trace.RuntimeTrace` when the session was built
+    with ``trace=True`` (None otherwise) — feed it to
+    :func:`repro_torch.obs.write_trace` for a Perfetto timeline.
     """
 
     results: Dict[int, Any]
@@ -151,6 +164,7 @@ class RunReport:
     scheduler: str
     n_workers: int
     stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    trace: Optional[Any] = None              # repro_torch.obs.trace.RuntimeTrace
 
     def result(self, ref: Any) -> Any:
         """Result of a task, by :class:`~repro_torch.api.graph.TaskHandle`,
@@ -204,14 +218,10 @@ class Session:
             raise ValueError(
                 f"unknown scheduler {scheduler!r}; valid schedulers: "
                 f"{', '.join(_SCHEDULERS)}")
-        if scheduler == "compiled":
-            raise not_ported("compiled")
-        if trace:
-            raise not_ported("trace")
         if procs is not None:
             raise not_ported("procs")
         resolve_policy(policy)       # typos fail HERE, with the valid names
-        if scheduler == "replay" and cache is None:
+        if scheduler in ("replay", "compiled") and cache is None:
             from ..replay.cache import GraphCache
             cache = GraphCache()     # recordings need a home; private one
         self.workers = workers
@@ -222,6 +232,7 @@ class Session:
         self.cache = cache
         self.allow_remap = allow_remap
         self.record_default = record
+        self.trace = trace
         self.shared_cores = shared_cores
         self.stall_timeout = stall_timeout
         self.block_poll = block_poll
@@ -233,6 +244,7 @@ class Session:
         self._runtime: Optional[Any] = None              # dynamic facade
         self._executors: Dict[str, Any] = {}             # digest -> executor
         self._pool: Optional[Any] = None                 # ReplayPool
+        self._compiled: Dict[str, Any] = {}              # digest -> CompiledExecutor
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -246,6 +258,7 @@ class Session:
             self._closed = True
             executors = list(self._executors.values())
             self._executors.clear()
+            self._compiled.clear()   # threadless; nothing to shut down
             pool, self._pool = self._pool, None
             runtime, self._runtime = self._runtime, None
             core, self._core = self._core, None
@@ -297,7 +310,7 @@ class Session:
                 self._runtime = Runtime(
                     self.workers, policy=self.policy,
                     gang_default=self.gang_default, seed=self.seed,
-                    core=self._leased_core())
+                    trace=self.trace, core=self._leased_core())
             return self._runtime
 
     def _replay_executor(self, recording):
@@ -313,7 +326,8 @@ class Session:
             if ex is None:
                 ex = ReplayExecutor(
                     recording, stall_timeout=self.stall_timeout,
-                    check_digest=False, core=self._leased_core())
+                    check_digest=False, trace=self.trace,
+                    core=self._leased_core())
                 ex.start()
                 self._executors[recording.digest] = ex
             return ex
@@ -327,6 +341,7 @@ class Session:
                 kwargs.setdefault("allow_remap", self.allow_remap)
                 kwargs.setdefault("stall_timeout", self.stall_timeout)
                 kwargs.setdefault("shared_cores", self.shared_cores)
+                kwargs.setdefault("trace", self.trace)
                 self._pool = ReplayPool(self.cache, **kwargs)
             return self._pool
 
@@ -379,9 +394,26 @@ class Session:
         rec = (self.cache.lookup(key, self.workers, self.policy)
                if self.cache is not None else None)
         if rec is not None:
+            if self.scheduler == "compiled":
+                return Plan(mode="compiled", recording=rec,
+                            reason="cache hit — lower the recording to a "
+                                   "fused serial program", **base)
             return Plan(mode="replay", recording=rec,
                         reason="cache hit for this shape at this worker "
                                "count", **base)
+        if self.scheduler == "compiled":
+            if self.allow_remap and self.cache is not None:
+                remapped, src = self._try_remap(key)
+                if remapped is not None:
+                    return Plan(
+                        mode="compiled", recording=remapped,
+                        remapped_from=src,
+                        reason=f"cache held the shape at {src} workers; "
+                               f"re-keyed and compiled for {self.workers}",
+                        **base)
+            return Plan(mode="record", record=True,
+                        reason="no recording for this shape — record this "
+                               "run, compile the next", **base)
         if self.scheduler == "replay":
             if self.allow_remap and self.cache is not None:
                 remapped, src = self._try_remap(key)
@@ -443,6 +475,8 @@ class Session:
             t0 = time.perf_counter()
             if plan.mode == "pool":
                 report = self._run_pool(plan, tg, timeout)
+            elif plan.mode == "compiled":
+                report = self._run_compiled(plan, tg, timeout)
             elif plan.mode == "replay":
                 report = self._run_replay(plan, tg, timeout)
             elif plan.mode in ("warm", "record"):
@@ -467,7 +501,8 @@ class Session:
         stats = dict(rt.last_stats)
         return RunReport(results=results, plan=plan, recording=recording,
                          wall_s=0.0, scheduler=self.scheduler,
-                         n_workers=self.workers, stats=stats)
+                         n_workers=self.workers, stats=stats,
+                         trace=rt.last_trace)
 
     def _run_replay(self, plan: Plan, tg: TaskGraph,
                     timeout: float) -> RunReport:
@@ -490,7 +525,58 @@ class Session:
         results = ex.run(tg, timeout=timeout)
         return RunReport(results=results, plan=plan, recording=recording,
                          wall_s=0.0, scheduler=self.scheduler,
-                         n_workers=self.workers, stats=dict(ex.stats))
+                         n_workers=self.workers, stats=dict(ex.stats),
+                         trace=ex.last_trace)
+
+    def _compiled_executor(self, tg: TaskGraph, recording):
+        """Get-or-build the per-digest compiled executor (threadless — no
+        core lease).  The lowering's
+        :class:`~repro_torch.compile.CompiledPlanMeta` is persisted next to
+        the recording in the session cache."""
+        from ..compile import CompiledExecutor, compile_recording
+        ex = self._compiled.get(recording.digest)
+        if ex is not None and ex.plan.recording is not recording:
+            ex = None                        # recording swapped (re-record)
+        if ex is None:
+            cplan = compile_recording(tg, recording)
+            ex = CompiledExecutor(tg, cplan)
+            self._compiled[recording.digest] = ex
+            if self.cache is not None and hasattr(self.cache, "store_plan_meta"):
+                self.cache.store_plan_meta(
+                    recording.digest, recording.n_workers, self.policy,
+                    cplan.meta.to_dict())
+        return ex
+
+    def _run_compiled(self, plan: Plan, tg: TaskGraph,
+                      timeout: float) -> RunReport:
+        from ..compile import CompiledRunError, CompileError
+        recording = plan.recording
+        if recording is None:
+            raise PlanError("compiled plan carries no recording")
+        if tg is not plan.graph:
+            from ..replay.graph_key import graph_key
+            if graph_key(tg).digest != recording.digest:
+                raise PlanError(
+                    f"plan's recording is for digest "
+                    f"{recording.digest[:16]} but the graph hashes "
+                    "differently")
+        if plan.remapped_from is not None and self.cache is not None:
+            self.cache.store(recording)
+        try:
+            ex = self._compiled_executor(tg, recording)
+            results = ex.run(tg, check_digest=False)
+            stats = dict(ex.stats)
+        except (CompileError, CompiledRunError) as e:
+            # stale/unlowerable plan: drop the executable and serve this
+            # run on the replay path (dynamic is replay's own fallback).  A
+            # CUDA capture or replay error is neither, and raises.
+            self._compiled.pop(recording.digest, None)
+            report = self._run_replay(plan, tg, timeout)
+            report.stats["compiled_fallback"] = str(e)
+            return report
+        return RunReport(results=results, plan=plan, recording=recording,
+                         wall_s=0.0, scheduler=self.scheduler,
+                         n_workers=self.workers, stats=stats, trace=None)
 
     def map(self, builder, inputs, *, record: Optional[bool] = None,
             key: Optional[Any] = None, timeout: float = 300.0,
@@ -498,8 +584,8 @@ class Session:
         """Run a sweep of same-shaped graphs through one plan: ``builder``
         maps each input to a graph; the first graph is planned once and the
         plan is reused for every later input (re-planned a single time when
-        the first run records, so the rest of the sweep replays).  Returns
-        the per-input :class:`RunReport` list.  ``procs`` (sharding the
+        the first run records, so the rest of the sweep replays/compiles).
+        Returns the per-input :class:`RunReport` list.  ``procs`` (sharding the
         sweep over worker processes) raises ``NotImplementedError``."""
         self._require_open()
         if procs is not None:
@@ -529,4 +615,4 @@ class Session:
         return RunReport(results=outcome.results, plan=plan,
                          recording=outcome.recording, wall_s=0.0,
                          scheduler=self.scheduler, n_workers=self.workers,
-                         stats=stats)
+                         stats=stats, trace=getattr(outcome, "trace", None))

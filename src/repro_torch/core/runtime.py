@@ -74,9 +74,6 @@ class Runtime:
         trace: bool = False,
         core: Optional[ExecutorCore] = None,
     ):
-        if trace:
-            from ..api.session import not_ported
-            raise not_ported("trace")
         if core is not None and core.n_workers != n_workers:
             raise ValueError(
                 f"shared core has {core.n_workers} workers, runtime wants "
@@ -98,6 +95,9 @@ class Runtime:
         #: the :class:`~repro_torch.replay.Recording` of the most recent
         #: ``run(record=True)``
         self.last_recording = None
+        #: assembled :class:`~repro_torch.obs.trace.RuntimeTrace` of the most
+        #: recent traced run (None with ``trace=False``)
+        self.last_trace = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -150,6 +150,11 @@ class Runtime:
             return results
         finally:
             self._dispatch.set_recording(False)
+            if self.trace_enabled:
+                # assemble in the finally so deadlocked/failed runs still
+                # leave their flight-recorder evidence behind
+                self.last_trace = self._dispatch.take_trace()
+                self._dispatch.apply_feedback(self.last_trace)
 
     # ------------------------------------------------------------------
     # parallel regions (called from task bodies via ctx.parallel)
@@ -183,9 +188,6 @@ class _RunGraphShim:
     * ``pool=p``       -> ``p.serve(...)`` (``record``/``replay``/
       ``cache``/``trace`` are the pool's own business and rejected when
       combined with it).
-
-    ``trace=True`` raises ``NotImplementedError`` (ROADMAP Queue A item 5),
-    as :class:`~repro_torch.api.Session` does.
 
     The v1 ``run_graph.last_recording`` module global is **gone from the
     library path**; this shim keeps a deprecation-warned, read-only,

@@ -814,11 +814,25 @@ class DynamicDispatch(DispatchStrategy):
         region.thread_done(ult.thread_num, result)
 
     # ------------------------------------------------------------------
-    # flight-recorder assembly: its consumer (obs/trace.py) is not ported
+    # flight-recorder assembly + victim-policy feedback
     def take_trace(self):
-        """Assemble the last run's events into a runtime trace."""
-        from ..api.session import not_ported
-        raise not_ported("trace")
+        """Assemble the last run's events into a
+        :class:`~repro_torch.obs.trace.RuntimeTrace` (``None`` with tracing
+        off)."""
+        if not self.trace_enabled:
+            return None
+        from ..obs.trace import RuntimeTrace
+        return RuntimeTrace.from_recorder(self.recorder)
+
+    def apply_feedback(self, trace) -> None:
+        """Feed an assembled trace's metrics (per-victim steal histograms,
+        resume latency) to every worker's victim policy — the data plumbing
+        stats-driven policies hook via ``VictimPolicy.observe``."""
+        if trace is None:
+            return
+        metrics = trace.metrics()
+        for pol in self._policies:
+            pol.observe(metrics)
 
     # ------------------------------------------------------------------
     # recording assembly (record-and-replay, repro_torch.replay)

@@ -680,11 +680,15 @@ class ReplayDispatch(DispatchStrategy):
                 "in the run")
 
     # ------------------------------------------------------------------
-    # flight-recorder assembly: its consumer (obs/trace.py) is not ported
+    # flight-recorder assembly
     def take_trace(self):
-        """Assemble the last run's events into a runtime trace."""
-        from ..api.session import not_ported
-        raise not_ported("trace")
+        """Assemble the last run's events into a
+        :class:`~repro_torch.obs.trace.RuntimeTrace` (``None`` with tracing
+        off)."""
+        if not self.trace_enabled:
+            return None
+        from ..obs.trace import RuntimeTrace
+        return RuntimeTrace.from_recorder(self.recorder)
 
     def _complete(self, w: int, task: Task) -> None:
         arbiter = self.arbiter

@@ -11,11 +11,15 @@ header rebuilds every kernel; the library is then loaded with
 
 Every kernel wrapper owns a :class:`LaunchCounter` and adds one to it where
 it launches its kernel, and nowhere else, so a run can show that its path
-went through the kernel.
+went through the kernel.  A launch made while the calling thread captures
+a CUDA graph (inside :func:`capturing_launches`) only records the kernel
+into the graph; it is tallied for that graph, and every replay of the
+graph adds the tally to the counts (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,10 +28,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
-__all__ = ["BUILD_DIR", "BuildError", "LaunchCounter", "build", "load",
-           "library_path", "require_aligned"]
+__all__ = ["BUILD_DIR", "BuildError", "LaunchCounter", "add_launches",
+           "build", "capturing_launches", "load", "library_path",
+           "require_aligned"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: ``<checkout>/build/kernels`` (listed in .gitignore)
@@ -40,6 +45,10 @@ class BuildError(RuntimeError):
     """A kernel source failed to compile (or no ``nvcc`` was found)."""
 
 
+#: per thread: the launch tally of the CUDA graph it is capturing, if any
+_capture = threading.local()
+
+
 class LaunchCounter:
     """A kernel's launch count: a plain integer, bumped under a lock because
     several worker threads launch the same kernel concurrently."""
@@ -49,13 +58,40 @@ class LaunchCounter:
         self.count = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        """Count ``n`` launches; on a thread that is capturing a CUDA graph
+        they go to the graph's tally instead, since nothing ran."""
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + n
+            return
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+
+
+@contextlib.contextmanager
+def capturing_launches() -> Iterator[Dict[LaunchCounter, int]]:
+    """While the block runs, launches this thread makes are tallied in the
+    yielded ``{counter: launches}`` instead of counted: the block captures
+    them into a CUDA graph, which runs them later (:func:`add_launches` at
+    each replay).  Other threads keep counting as usual."""
+    if getattr(_capture, "tally", None) is not None:
+        raise RuntimeError("this thread is already capturing launches")
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def add_launches(tally: Dict[LaunchCounter, int]) -> None:
+    """Count the launches a captured graph's replay ran."""
+    for counter, n in tally.items():
+        counter.add(n)
 
 
 def require_aligned(name: str, t, dims, copy: str, align: int = 16) -> None:

@@ -59,8 +59,9 @@ def build_cholesky_graph(
     noop = (lambda ctx: None) if numeric else None
     if numeric:
         # fuse metadata: numeric bodies are pure tile kernels over the store,
-        # declared so compiled plans can fuse runs of them into one jitted
-        # segment (Task.meta is digest-neutral — recordings are unaffected)
+        # declared so compiled plans can fuse runs of them into one segment,
+        # one CUDA graph on the card (Task.meta is digest-neutral —
+        # recordings are unaffected)
         g.fuse_state = store
 
     def _fuse(kernel, reads, writes):

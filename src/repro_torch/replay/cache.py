@@ -18,8 +18,9 @@ re-recording — and :meth:`GraphCache.candidates` enumerates every worker
 count a digest has been recorded at, which is what worker-count remapping
 (:mod:`~repro_torch.replay.remap`) feeds on.
 
-Compiled-plan metadata (the reference package's ``CompiledPlanMeta``
-dicts; the port's compiled plans are ROADMAP Queue A item 4) rides alongside recordings under the same cache key as ``<ckey>.plan.json``
+Compiled-plan metadata (:class:`~repro_torch.compile.CompiledPlanMeta`
+dicts, one JSON format with the reference package's) rides alongside
+recordings under the same cache key as ``<ckey>.plan.json``
 (:meth:`store_plan_meta` / :meth:`lookup_plan_meta`): the lowering's shape
 — segment counts, fusion coverage, boundary reasons — survives the process
 while the executable itself stays memory-only.  Swapping or invalidating a

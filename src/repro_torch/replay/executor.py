@@ -47,12 +47,6 @@ class ReplayExecutor:
         trace: bool = False,
         core: Optional[ExecutorCore] = None,
     ):
-        """``trace=True`` is the reference's flight-recorder trace, which
-        the port does not assemble yet: it raises ``NotImplementedError``
-        (ROADMAP Queue A item 5)."""
-        if trace:
-            from ..api.session import not_ported
-            raise not_ported("trace")
         if core is not None and core.n_workers != recording.n_workers:
             raise ValueError(
                 f"shared core has {core.n_workers} workers but the recording "
@@ -62,11 +56,16 @@ class ReplayExecutor:
         self.stall_timeout = stall_timeout
         self.block_poll = block_poll
         self.check_digest = check_digest
+        self.trace_enabled = trace
+        #: assembled :class:`~repro_torch.obs.trace.RuntimeTrace` of the most
+        #: recent traced replay (None with ``trace=False``)
+        self.last_trace = None
 
         self._core = core if core is not None else ExecutorCore(
             recording.n_workers, block_poll=block_poll, name="replay-worker")
         self._owns_core = core is None
-        self._dispatch = ReplayDispatch(recording, stall_timeout=stall_timeout)
+        self._dispatch = ReplayDispatch(recording, stall_timeout=stall_timeout,
+                                        trace=trace)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -102,7 +101,13 @@ class ReplayExecutor:
     def run(self, graph: TaskGraph, timeout: float = 300.0) -> Dict[int, Any]:
         """Execute ``graph`` following the recording; returns {tid: result}."""
         self.recording.validate_against(graph, check_digest=self.check_digest)
-        return self._core.run(self._dispatch, graph, timeout=timeout)
+        try:
+            return self._core.run(self._dispatch, graph, timeout=timeout)
+        finally:
+            if self.trace_enabled:
+                # assemble in the finally so stalled/failed replays still
+                # leave their flight-recorder evidence behind
+                self.last_trace = self._dispatch.take_trace()
 
 
 def replay_graph(

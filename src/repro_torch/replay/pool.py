@@ -44,15 +44,23 @@ same warm substrate:
   (warmups, recordings, re-recordings); a replay EWMA above ``factor ×``
   the dynamic baseline for ``drift_patience`` consecutive runs also
   triggers re-recording — even at zero fallback steals;
+* **warm → compiled promotion** — with ``compile_after`` set, an entry
+  whose last ``compile_after`` replays were *deviation-free* (zero fallback
+  steals / skips, no pending re-record) is promoted: the recording is
+  lowered via :func:`~repro_torch.compile.compile_recording` into a fused serial
+  plan and later requests are served by a
+  :class:`~repro_torch.compile.CompiledExecutor` (mode ``compiled``) — no worker
+  dispatch at all.  The lowering's shape is persisted next to the recording
+  (:meth:`GraphCache.store_plan_meta`).  A compiled serve that fails
+  (:class:`~repro_torch.compile.CompiledRunError` — the plan no longer matches
+  the graph's behavior) demotes the entry back to replay, where the drift
+  machinery takes over; a re-record (:meth:`_install`) always drops the
+  compiled plan, and clean replays must be re-earned;
 * **multi-tenant cap** — ``max_shapes`` bounds the number of resident
   entries; inserting past the cap evicts the least-recently-used
   ``(GraphKey, workers, policy)`` entry, releasing its core lease (cheap:
   no threads die — the shared cores stay warm).  A request racing its own
   entry's eviction completes normally on a fresh lease.
-
-The reference package's warm → compiled promotion (``compile_after``) and
-flight-recorder traces (``trace=True``) reach modules the port does not
-have yet; both raise ``NotImplementedError`` naming their ROADMAP item.
 
 Thread safety: requests for the same shape serialize on the entry lock;
 requests for different shapes at the same worker count serialize on the
@@ -67,7 +75,6 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
-from ..api.session import not_ported
 from ..core.policies import resolve as resolve_policy
 from ..core.taskgraph import TaskGraph
 from ..exec.core import ExecutorCore
@@ -84,11 +91,15 @@ class PoolRun:
     """One served request, structured: results, the recording that is (or
     just became) live for the shape, how the request was served (``mode``:
     ``warmup`` / ``record`` / ``adopt`` / ``remap`` / ``rerecord`` /
-    ``replay``) and a snapshot of the entry's serving counters.  For
+    ``replay`` / ``compiled``) and a snapshot of the entry's serving
+    counters.  For compiled serves ``stats["compiled_stats"]`` carries the
+    driver's counters (``dispatch_overhead_fraction``, segments, fused
+    tasks).  For
     replay serves ``stats["replay_stats"]`` carries the executor's raw
     deviation counters (``fallback_steals`` / ``stalls`` / ``skips`` /
     ``run_ahead``) so a slow row is explainable from the outcome alone.
-    The session API wraps this into a
+    ``trace`` is the run's :class:`~repro_torch.obs.trace.RuntimeTrace` when the
+    pool was built with ``trace=True``.  The session API wraps this into a
     :class:`~repro_torch.api.session.RunReport`; the legacy
     :meth:`ReplayPool.run` returns just ``results``."""
 
@@ -96,6 +107,7 @@ class PoolRun:
     recording: Optional[Recording]
     mode: str
     stats: Dict[str, Any]
+    trace: Optional[Any] = None              # repro_torch.obs.trace.RuntimeTrace
 
 
 @dataclasses.dataclass
@@ -114,10 +126,20 @@ class PoolEntryStats:
     dynamic_ms: float = 0.0   # EWMA of dynamic-run wall clock (baseline)
     latency_strikes: int = 0  # consecutive replays past the latency factor
     clean_replays: int = 0    # consecutive deviation-free replays
+    compiles: int = 0         # warm -> compiled promotions
+    compiled_serves: int = 0  # serves run on the compiled executor
+    compile_failures: int = 0  # lowering/compiled-run failures (fell back)
+    compiled_ms: float = 0.0  # EWMA of compiled-serve wall clock
+    #: rolling (EWMA) flight-recorder metrics for this shape — populated
+    #: only when the pool traces (steal_success_rate,
+    #: dispatch_overhead_fraction, utilization, resume_latency_mean_s,
+    #: replay_fallback_rate)
+    trace_metrics: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> Dict[str, Any]:
         # hand-rolled: this runs on EVERY serve (the outcome snapshot), and
-        # dataclasses.asdict is slower on that path
+        # dataclasses.asdict deep-copies recursively — including
+        # trace_metrics — which showed up on the smoke-bench serve path
         return {
             "requests": self.requests,
             "replays": self.replays,
@@ -131,18 +153,24 @@ class PoolEntryStats:
             "dynamic_ms": self.dynamic_ms,
             "latency_strikes": self.latency_strikes,
             "clean_replays": self.clean_replays,
+            "compiles": self.compiles,
+            "compiled_serves": self.compiled_serves,
+            "compile_failures": self.compile_failures,
+            "compiled_ms": self.compiled_ms,
+            "trace_metrics": dict(self.trace_metrics),
         }
 
 
 class _PoolEntry:
     """One per-shape lease (executor + recording) + drift bookkeeping."""
 
-    __slots__ = ("executor", "recording", "n_entries", "lock",
+    __slots__ = ("executor", "recording", "compiled", "n_entries", "lock",
                  "stats", "needs_rerecord", "rerecord_inflight", "last_error")
 
     def __init__(self) -> None:
         self.executor: Optional[ReplayExecutor] = None
         self.recording: Optional[Recording] = None
+        self.compiled: Optional[Any] = None   # repro_torch.compile.CompiledExecutor
         self.n_entries = 1
         self.lock = threading.Lock()
         self.stats = PoolEntryStats()
@@ -186,13 +214,16 @@ class ReplayPool:
         least-recently-used entry past the cap is evicted and its core
         lease released.  ``None`` (default) keeps every shape.
     compile_after:
-        The reference's warm → compiled promotion; anything but ``None``
-        raises ``NotImplementedError`` (ROADMAP Queue A item 4).
+        Promote an entry to a fused compiled plan after this many
+        *consecutive deviation-free* replays (see module docstring).
+        ``None`` (default) disables promotion.
     stall_timeout:
         Forwarded to each :class:`ReplayExecutor`.
     trace:
-        The reference's traced serves; ``True`` raises
-        ``NotImplementedError`` (ROADMAP Queue A item 5).
+        Run every serve (replay *and* the dynamic warmup/record paths) with
+        the flight recorder on.  Each :class:`PoolRun` then carries the
+        run's :class:`~repro_torch.obs.trace.RuntimeTrace` and the entry keeps
+        rolling per-shape trace metrics (``PoolEntryStats.trace_metrics``).
     shared_cores:
         Lease worker cores from the process-global
         :class:`~repro_torch.exec.registry.CoreRegistry` (default): several pools
@@ -219,10 +250,9 @@ class ReplayPool:
     ):
         if max_shapes is not None and max_shapes < 1:
             raise ValueError("max_shapes must be >= 1 (or None for no cap)")
-        if compile_after is not None:
-            raise not_ported("compiled")
-        if trace:
-            raise not_ported("trace")
+        if compile_after is not None and compile_after < 1:
+            raise ValueError(
+                "compile_after must be >= 1 (or None to disable promotion)")
         self.cache = cache if cache is not None else GraphCache()
         self.drift_threshold = drift_threshold
         self.drift_patience = drift_patience
@@ -230,8 +260,10 @@ class ReplayPool:
         self.latency_alpha = latency_alpha
         self.allow_remap = allow_remap
         self.warmup_runs = warmup_runs
+        self.compile_after = compile_after
         self.max_shapes = max_shapes
         self.stall_timeout = stall_timeout
+        self.trace = trace
         self.shared_cores = shared_cores
         self.last_recording: Optional[Recording] = None
         self.evictions = 0
@@ -270,6 +302,7 @@ class ReplayPool:
             if entry.executor is not None:
                 entry.executor.shutdown()
                 entry.executor = None
+            entry.compiled = None   # threadless — just drop the reference
             entry.needs_rerecord = False
 
     def __enter__(self) -> "ReplayPool":
@@ -385,14 +418,15 @@ class ReplayPool:
                 raise RuntimeError("ReplayPool is shut down")
             entry.stats.requests += 1
             if entry.executor is None:
-                results, mode, replayed = self._materialize(
+                results, mode, trace, replayed = self._materialize(
                     entry, key, graph, n_workers, rt_kwargs, timeout)
-                return self._outcome(entry, results, mode, replayed=replayed)
+                return self._outcome(entry, results, mode, trace,
+                                     replayed=replayed)
             if entry.needs_rerecord:
                 if builder is None:
-                    results = self._rerecord_inline(
+                    results, trace = self._rerecord_inline(
                         entry, graph, n_workers, rt_kwargs, timeout)
-                    return self._outcome(entry, results, "rerecord")
+                    return self._outcome(entry, results, "rerecord", trace)
                 if not entry.rerecord_inflight:
                     entry.rerecord_inflight = True
                     threading.Thread(
@@ -401,20 +435,39 @@ class ReplayPool:
                         daemon=True,
                         name=f"replay-pool-rerecord-{ckey[:12]}",
                     ).start()
+            if entry.compiled is not None and not entry.needs_rerecord:
+                from ..compile import CompiledRunError
+
+                try:
+                    results = self._serve_compiled(entry, graph, timeout)
+                    return self._outcome(entry, results, "compiled")
+                except CompiledRunError as e:
+                    # the plan no longer matches the graph's behavior —
+                    # demote to replay and let the drift machinery decide
+                    # whether the recording itself has gone stale
+                    entry.compiled = None
+                    entry.stats.compile_failures += 1
+                    entry.stats.clean_replays = 0
+                    entry.last_error = e
             results = self._replay(entry, graph, timeout)
             return self._outcome(entry, results, "replay", replayed=True)
 
     @staticmethod
-    def _outcome(entry: _PoolEntry, results: Dict[int, Any], mode: str, *,
+    def _outcome(entry: _PoolEntry, results: Dict[int, Any], mode: str,
+                 trace: Optional[Any] = None, *,
                  replayed: bool = False) -> PoolRun:
         stats = entry.stats.as_dict()
+        if mode == "compiled" and entry.compiled is not None:
+            stats["compiled_stats"] = dict(entry.compiled.stats)
         if replayed and entry.executor is not None:
             # raw deviation counters of THIS replay — a speedup<1 row is
             # explainable from the outcome alone (fallback steals, stalls,
             # skips), without cross-referencing pool.describe()
             stats["replay_stats"] = dict(entry.executor.stats)
+            if trace is None:
+                trace = entry.executor.last_trace
         return PoolRun(results=results, recording=entry.recording,
-                       mode=mode, stats=stats)
+                       mode=mode, stats=stats, trace=trace)
 
     def run(
         self,
@@ -444,7 +497,45 @@ class ReplayPool:
         elapsed = time.perf_counter() - t0
         entry.stats.replays += 1
         self._observe_drift(entry, elapsed)
+        self._note_trace(entry, entry.executor.last_trace)
+        if (self.compile_after is not None and entry.compiled is None
+                and not entry.needs_rerecord
+                and entry.stats.clean_replays >= self.compile_after):
+            self._promote(entry, graph)
         return results
+
+    def _serve_compiled(self, entry: _PoolEntry, graph: TaskGraph,
+                        timeout: float) -> Dict[int, Any]:
+        """One serve on the entry's compiled plan: single-threaded fused
+        dispatch — no worker hand-off, no queues.  ``timeout`` is unused
+        (the driver is synchronous); kept for signature symmetry."""
+        t0 = time.perf_counter()
+        results = entry.compiled.run(graph, check_digest=False)
+        elapsed = time.perf_counter() - t0
+        st = entry.stats
+        st.compiled_serves += 1
+        st.compiled_ms = self._ewma(st.compiled_ms, elapsed * 1e3)
+        return results
+
+    def _promote(self, entry: _PoolEntry, graph: TaskGraph) -> None:
+        """Lower the entry's (stable) recording into a fused compiled plan
+        and persist the lowering's shape next to the recording.  A failed
+        lowering resets the clean-replay streak — the entry keeps replaying
+        and must re-earn promotion before the pool tries again."""
+        from ..compile import CompiledExecutor, CompileError, compile_recording
+
+        rec = entry.recording
+        try:
+            plan = compile_recording(graph, rec)
+            entry.compiled = CompiledExecutor(graph, plan)
+        except CompileError as e:
+            entry.stats.compile_failures += 1
+            entry.stats.clean_replays = 0
+            entry.last_error = e
+            return
+        entry.stats.compiles += 1
+        self.cache.store_plan_meta(rec.digest, rec.n_workers, rec.policy,
+                                   plan.meta.to_dict())
 
     # ------------------------------------------------------------------
     # entry construction paths
@@ -456,9 +547,9 @@ class ReplayPool:
         n_workers: int,
         rt_kwargs: Dict[str, Any],
         timeout: float,
-    ) -> Tuple[Dict[int, Any], str, bool]:
+    ) -> Tuple[Dict[int, Any], str, Optional[Any], bool]:
         """Cold path: adopt / remap / record, install the lease, serve.
-        Returns ``(results, mode, replayed)`` — ``replayed`` says the
+        Returns ``(results, mode, trace, replayed)`` — ``replayed`` says the
         serve itself was driven by the installed executor (adopt/remap),
         not a dynamic run."""
         policy = rt_kwargs["policy"]
@@ -476,27 +567,30 @@ class ReplayPool:
                 # precisely for the shipped recordings most likely to be
                 # imbalanced.  One dynamic probe seeds the EWMA.
                 entry.stats.warmups += 1
-                results, _, elapsed = self._run_dynamic(
+                results, _, elapsed, trace = self._run_dynamic(
                     graph, n_workers, rt_kwargs, timeout, record=False)
                 self._note_dynamic(entry, elapsed)
-                return results, mode, False
-            return self._replay(entry, graph, timeout), mode, True
+                self._note_trace(entry, trace)
+                return results, mode, trace, False
+            return self._replay(entry, graph, timeout), mode, None, True
         if entry.stats.warmups < self.warmup_runs:
             # serve cold requests dynamically without recording: the first
             # executions pay one-off costs (kernel builds) whose skew would
             # otherwise be baked into the recorded placement
             entry.stats.warmups += 1
-            results, _, elapsed = self._run_dynamic(
+            results, _, elapsed, trace = self._run_dynamic(
                 graph, n_workers, rt_kwargs, timeout, record=False)
             self._note_dynamic(entry, elapsed)
-            return results, "warmup", False
-        results, recording, elapsed = self._run_dynamic(
+            self._note_trace(entry, trace)
+            return results, "warmup", trace, False
+        results, recording, elapsed, trace = self._run_dynamic(
             graph, n_workers, rt_kwargs, timeout, record=True)
         entry.stats.records += 1
         self._note_dynamic(entry, elapsed)
+        self._note_trace(entry, trace)
         self.cache.store(recording)
         self._install(entry, recording)
-        return results, "record", False
+        return results, "record", trace, False
 
     def _remap_from_cache(
         self,
@@ -527,19 +621,19 @@ class ReplayPool:
         *,
         record: bool,
         transient: bool = False,
-    ) -> Tuple[Dict[int, Any], Optional[Recording], float]:
+    ) -> Tuple[Dict[int, Any], Optional[Recording], float, Optional[Any]]:
         """One dynamic run on the shared warm core (or on transient private
         threads when ``transient`` — the background re-record path, which
         must not occupy the serving core)."""
         from ..core.runtime import Runtime
 
         core = None if transient else self._core_for(n_workers)
-        rt = Runtime(n_workers, core=core, **rt_kwargs)
+        rt = Runtime(n_workers, core=core, trace=self.trace, **rt_kwargs)
         with rt:
             t0 = time.perf_counter()
             results = rt.run(graph, timeout=timeout, record=record)
             elapsed = time.perf_counter() - t0
-        return results, rt.last_recording, elapsed
+        return results, rt.last_recording, elapsed, rt.last_trace
 
     def _install(self, entry: _PoolEntry, recording: Recording) -> None:
         """(Re)build the entry's executor lease around ``recording``."""
@@ -550,11 +644,14 @@ class ReplayPool:
             1, sum(len(o) for o in recording.worker_orders))
         entry.executor = ReplayExecutor(
             recording, stall_timeout=self.stall_timeout, check_digest=False,
-            core=self._core_for(recording.n_workers))
+            trace=self.trace, core=self._core_for(recording.n_workers))
         entry.executor.start()
         entry.needs_rerecord = False
         entry.stats.drift_strikes = 0
         entry.stats.latency_strikes = 0
+        # a new recording stales any lowering (the cache drops the plan
+        # meta on swap for the same reason); promotion must be re-earned
+        entry.compiled = None
         entry.stats.clean_replays = 0
 
     # ------------------------------------------------------------------
@@ -567,6 +664,23 @@ class ReplayPool:
     def _note_dynamic(self, entry: _PoolEntry, elapsed_s: float) -> None:
         entry.stats.dynamic_ms = self._ewma(entry.stats.dynamic_ms,
                                             elapsed_s * 1e3)
+
+    #: flight-recorder metrics rolled per shape (the data the victim-policy
+    #: layer consumes)
+    _TRACE_KEYS = ("steal_success_rate", "dispatch_overhead_fraction",
+                   "utilization", "replay_fallback_rate")
+
+    def _note_trace(self, entry: _PoolEntry, trace: Optional[Any]) -> None:
+        """Roll a traced run's metrics into the entry's EWMA trackers."""
+        if trace is None:
+            return
+        metrics = trace.metrics()
+        tm = entry.stats.trace_metrics
+        for key in self._TRACE_KEYS:
+            tm[key] = self._ewma(tm.get(key, 0.0), float(metrics[key]))
+        resume_mean = float(metrics["resume_latency"]["mean_s"])
+        tm["resume_latency_mean_s"] = self._ewma(
+            tm.get("resume_latency_mean_s", 0.0), resume_mean)
 
     def _observe_drift(self, entry: _PoolEntry, elapsed_s: float) -> None:
         stats = entry.executor.stats
@@ -589,7 +703,8 @@ class ReplayPool:
         if (st.drift_strikes >= self.drift_patience
                 or st.latency_strikes >= self.drift_patience):
             entry.needs_rerecord = True
-        # a replay that earned no strike of either kind is "clean"
+        # a replay that earned no strike of either kind is "clean" — the
+        # streak that earns warm -> compiled promotion (compile_after)
         if (st.drift_strikes == 0 and st.latency_strikes == 0
                 and not entry.needs_rerecord):
             st.clean_replays += 1
@@ -603,7 +718,7 @@ class ReplayPool:
         n_workers: int,
         rt_kwargs: Dict[str, Any],
         timeout: float,
-    ) -> Dict[int, Any]:
+    ) -> Tuple[Dict[int, Any], Optional[Any]]:
         """Serve this request dynamically with instrumentation on; its
         recording replaces the stale one (the request itself is the
         re-record — no double execution of side-effecting task bodies)."""
@@ -615,13 +730,14 @@ class ReplayPool:
             raise RecordingError(
                 f"graph has {len(graph)} tasks but the entry's recording "
                 f"covers {rec.n_tasks()}: wrong graph for this pool key")
-        results, recording, elapsed = self._run_dynamic(
+        results, recording, elapsed, trace = self._run_dynamic(
             graph, n_workers, rt_kwargs, timeout, record=True)
         entry.stats.rerecords += 1
         self._note_dynamic(entry, elapsed)
+        self._note_trace(entry, trace)
         self.cache.swap(recording)
         self._install(entry, recording)
-        return results
+        return results, trace
 
     def _rerecord_background(
         self,
@@ -636,7 +752,7 @@ class ReplayPool:
         then hot-swap recording + executor under the entry lock."""
         try:
             twin = builder()
-            _, recording, elapsed = self._run_dynamic(
+            _, recording, elapsed, trace = self._run_dynamic(
                 twin, n_workers, rt_kwargs, timeout, record=True,
                 transient=True)
             with entry.lock:
@@ -649,6 +765,7 @@ class ReplayPool:
                     return
                 entry.stats.rerecords += 1
                 self._note_dynamic(entry, elapsed)
+                self._note_trace(entry, trace)
                 self.cache.swap(recording)
                 self._install(entry, recording)
         except BaseException as e:  # noqa: BLE001 - surfaced via last_error

@@ -161,6 +161,8 @@ class ContinuousBatchingEngine:
         self._warm_steps = 0
         self._lane_steps = 0
         self._shape_counts: Dict[int, int] = {}
+        self._trace: Optional[Any] = None
+        self._trace_k = 0
         self._vnow = 0.0
         self._t0 = time.perf_counter()
 
@@ -321,6 +323,10 @@ class ContinuousBatchingEngine:
         self._shape_counts[k] = self._shape_counts.get(k, 0) + 1
         if report.stats.get("pool_mode") in _WARM_MODES:
             self._warm_steps += 1
+        if report.trace is not None and k >= self._trace_k:
+            # keep the most heavily loaded step's trace: the steady-state
+            # window a trace export wants
+            self._trace, self._trace_k = report.trace, k
         still: List[RequestState] = []
         for i, st in enumerate(self._active):
             tid = st.note_token(self._step_tokens[i])
@@ -388,4 +394,5 @@ class ContinuousBatchingEngine:
             max_batch=self.max_batch,
             wall_s=time.perf_counter() - self._t0,
             shape_counts=dict(self._shape_counts),
+            trace=self._trace,
         )

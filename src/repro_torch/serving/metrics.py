@@ -58,8 +58,8 @@ class ServingReport:
     counts decode-step graphs executed, ``warm_steps`` how many of them the
     pool served as warm replays (0 under a dynamic session),
     ``lane_steps`` the total lanes occupied across steps (occupancy =
-    ``lane_steps / steps / max_batch``).  ``trace`` stays None in the port:
-    the flight recorder's trace (``Session(trace=True)``) is not ported yet.
+    ``lane_steps / steps / max_batch``).  ``trace`` is the flight-recorder
+    trace of the most heavily loaded step when the session traced.
     """
 
     records: Dict[int, RequestRecord]
@@ -69,7 +69,7 @@ class ServingReport:
     max_batch: int
     wall_s: float
     shape_counts: Dict[int, int] = dataclasses.field(default_factory=dict)
-    trace: Optional[Any] = None            # always None: tracing is not ported
+    trace: Optional[Any] = None            # repro_torch.obs.trace.RuntimeTrace
 
     # ------------------------------------------------------------------
     @property

@@ -22,9 +22,11 @@ and depth in its own dtype, on the CUDA device: ``--reduced`` takes the
 reference's small smoke configuration, ``--layers N`` cuts the depth,
 ``--device cpu`` runs on the host.  Prompts are drawn with numpy from seed
 1 (the reference draws them with ``jax.random``, so the ids differ).
-``--trace`` and ``--procs`` raise ``NotImplementedError`` (ROADMAP Queue A
-items 5 and 6).  ``dynamic`` stays the default here, as the CUDA runs of
-earlier slices used it.
+``--trace PATH`` serves with the flight recorder on and writes the last
+decode step (under ``--arrivals poisson``: the most heavily loaded step) as
+Perfetto JSON; it needs a task-graph scheduler.  ``--procs`` raises
+``NotImplementedError`` (ROADMAP Queue A item 6).  ``dynamic`` stays the
+default here, as the CUDA runs of earlier slices used it.
 
 Run:  python -m repro_torch.serving.serve_lm --reduced --device cpu
       python -m repro_torch.serving.serve_lm --arch zamba2-7b --reduced \
@@ -33,6 +35,8 @@ Run:  python -m repro_torch.serving.serve_lm --reduced --device cpu
           --rate 100 --requests 12
       python -m repro_torch.serving.serve_lm --reduced --device cpu \\
           --scheduler pool --cache-dir /tmp/graphs
+      python -m repro_torch.serving.serve_lm --reduced --device cpu \\
+          --trace trace.json
 """
 
 from __future__ import annotations
@@ -63,7 +67,21 @@ def _session(args, **pool_kwargs) -> Session:
     cache = GraphCache(args.cache_dir) if args.cache_dir and pool else None
     kwargs = {"pool_kwargs": pool_kwargs} if pool else {}
     return Session(args.workers, scheduler=args.scheduler, cache=cache,
-                   **kwargs)
+                   trace=bool(args.trace), **kwargs)
+
+
+def _write_trace(args, cfg, trace, **extra) -> None:
+    """``--trace``: export ``trace`` as Perfetto JSON."""
+    if not args.trace or trace is None:
+        return
+    from ..obs import write_trace
+    write_trace(trace, args.trace,
+                extra={"workers": args.workers, "arch": cfg.name,
+                       "scheduler": args.scheduler, **extra})
+    m = trace.metrics()
+    print(f"trace:   {args.trace} (dispatch overhead "
+          f"{m['dispatch_overhead_fraction']:.1%}, open in "
+          "https://ui.perfetto.dev)")
 
 
 def _print_pool(args, session: Session) -> None:
@@ -100,6 +118,7 @@ def serve_poisson(args, cfg, model, device):
         report = engine.run(workload.requests())
         _print_pool(args, session)
     print(report.describe())
+    _write_trace(args, cfg, report.trace, arrivals="poisson")
     s = report.summary()
     print(f"per-token p50/p99: {s['p50_tok_ms']:.2f}/{s['p99_tok_ms']:.2f} "
           f"ms, ttft p50/p99: {s['ttft_p50_ms']:.2f}/{s['ttft_p99_ms']:.2f} "
@@ -138,15 +157,17 @@ def serve_batch(args, cfg, model, device):
                                   max_len=max_len, device=device)
         _sync(device)
         t_prefill = time.perf_counter() - t0
+        report = None
         with _session(args) as session:
             t0 = time.perf_counter()
             for _ in range(args.tokens - 1):
-                session.run(build_decode_graph(
+                report = session.run(build_decode_graph(
                     state, lambda p, c, t: decode_step(p, cfg, c, t)))
             _sync(device)
             t_decode = time.perf_counter() - t0
             _print_pool(args, session)
         gen = state.tokens()
+        _write_trace(args, cfg, report.trace if report else None)
 
     print(f"prefill: {t_prefill*1e3:.1f} ms "
           f"({args.batch*args.prompt_len/t_prefill:.0f} tok/s)")
@@ -172,7 +193,9 @@ def main(argv=None):
                     help="on-disk GraphCache dir (pool): recordings persist "
                          "across runs")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="export a Perfetto trace (not ported)")
+                    help="serve with the flight recorder on and export the "
+                         "last decode step as Perfetto JSON here (open in "
+                         "https://ui.perfetto.dev)")
     ap.add_argument("--arrivals", choices=("batch", "poisson"),
                     default="batch",
                     help="batch: fixed batch decoded to --tokens; poisson: "
@@ -197,12 +220,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
-    if args.procs:
-        raise not_ported("procs")
-    if args.trace:
-        raise not_ported("trace")
+    if args.trace and args.scheduler == "jit":
+        ap.error("--trace needs a task-graph scheduler (dynamic or pool)")
     if args.arrivals == "poisson" and args.scheduler == "jit":
         ap.error("--arrivals poisson needs a task-graph scheduler")
+    if args.procs and args.trace:
+        ap.error("--trace is per-process; not supported with --procs")
+    if args.procs:
+        raise not_ported("procs")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -591,3 +591,171 @@ def test_reduced_ssm_model_serves_on_card_graph_equals_plain_loop(cuda, arch):
             toks.append(tok)
         loop.append(torch.cat(toks, 1))
     assert torch.equal(state.tokens(), torch.cat(loop, 0))
+
+
+# ---------------------------------------------------------------------------
+# compiled plans: fused segments captured as CUDA graphs
+# ---------------------------------------------------------------------------
+def _factors(kernel, store):
+    """Everything a factorization leaves behind, flat (QR: with every
+    panel's reflectors)."""
+    parts = [store.assemble().flatten()]
+    if kernel == "qr":
+        parts += [x.flatten() for k in range(store.nb)
+                  for x in store.vt_store[k]]
+    return torch.cat(parts)
+
+
+def _build(kernel, nb, b, store):
+    from repro_torch.linalg import KERNELS
+    kw = {} if kernel == "cholesky" else dict(panel_threads=3)
+    return KERNELS[kernel](nb, b, store=store, **kw)
+
+
+def _matrix(kernel, n, device, seed=0):
+    if kernel == "cholesky":
+        return random_spd(n, seed=seed, device=device)
+    return _panel_matrix(kernel, n, device) if seed == 0 else \
+        _panel_matrix(kernel, n, device) + seed * torch.eye(n, device=device,
+                                                            dtype=torch.float64)
+
+
+def _expected_launches(kernel, nb):
+    from repro_torch.linalg.qr import COL_UPDATE_LAUNCHES
+    if kernel == "cholesky":
+        return math.comb(nb + 1, 3)
+    if kernel == "lu":
+        return sum(m * m for m in range(1, nb))
+    return COL_UPDATE_LAUNCHES * math.comb(nb, 2)
+
+
+@pytest.mark.parametrize("kernel", ["cholesky", "lu", "qr"])
+def test_compiled_on_card_equals_dynamic_with_exact_launches(cuda, kernel):
+    """nb = 6: record, then capture-and-replay, then replay only; every
+    compiled run's factors equal the dynamic run's bit for bit, every
+    captured graph's launches are counted at each replay, and the factors
+    agree with the CPU run."""
+    from repro_torch.replay import GraphCache
+
+    nb, b = 6, 32
+    a = _matrix(kernel, nb * b, cuda)
+    want = _expected_launches(kernel, nb)
+    with repro_torch.Session(4) as s:
+        store = to_tiles(a, b)
+        s.run(_build(kernel, nb, b, store))
+    dynamic = _factors(kernel, store)
+    cpu_store = to_tiles(a.cpu(), b, device="cpu")
+    with repro_torch.Session(4) as s:
+        s.run(_build(kernel, nb, b, cpu_store))
+    cpu = _factors(kernel, cpu_store)
+    modes = []
+    with repro_torch.Session(4, scheduler="compiled",
+                             cache=GraphCache()) as s:
+        for run in range(4):
+            store = to_tiles(a, b)
+            torch.cuda.synchronize()
+            before = launch_counts()["tile_matmul"]
+            report = s.run(_build(kernel, nb, b, store))
+            torch.cuda.synchronize()
+            modes.append(report.plan.mode)
+            assert launch_counts()["tile_matmul"] - before == want
+            assert "compiled_fallback" not in report.stats
+            assert torch.equal(_factors(kernel, store), dynamic)
+            if run:
+                ex = s._compiled[report.recording.digest]
+                assert report.stats["captured_graphs"] == \
+                    ex.plan.meta.jit_segments > 0
+                assert report.stats["graphs_captured_this_run"] == \
+                    (ex.plan.meta.jit_segments if run == 1 else 0)
+    assert modes == ["record", "compiled", "compiled", "compiled"]
+    rel = ((dynamic.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    assert rel <= 1e-10
+
+
+@pytest.mark.parametrize("kernel", ["cholesky", "qr"])
+def test_compiled_run_leaves_no_factor_aliasing_the_graphs(cuda, kernel):
+    """A later compiled run on another matrix replays the same graphs; the
+    earlier run's factors stay as they were."""
+    from repro_torch.replay import GraphCache
+
+    nb, b = 6, 32
+    first, second = _matrix(kernel, nb * b, cuda), \
+        _matrix(kernel, nb * b, cuda, seed=3)
+    with repro_torch.Session(4, scheduler="compiled",
+                             cache=GraphCache()) as s:
+        s.run(_build(kernel, nb, b, to_tiles(first, b)))       # records
+        s.run(_build(kernel, nb, b, to_tiles(first, b)))       # captures
+        kept = to_tiles(first, b)
+        s.run(_build(kernel, nb, b, kept))
+        torch.cuda.synchronize()
+        snapshot = _factors(kernel, kept).clone()
+        other = to_tiles(second, b)
+        report = s.run(_build(kernel, nb, b, other))
+        torch.cuda.synchronize()
+    assert report.plan.mode == "compiled"
+    assert torch.equal(_factors(kernel, kept), snapshot)
+    assert not torch.equal(_factors(kernel, other), snapshot)
+
+
+def test_compiled_qr_stages_the_panel_reflectors(cuda):
+    """QR's column updates read ``("vt", k)``, a tuple every panel uploads
+    afresh: its captured segments stage it into buffers of their own."""
+    from repro_torch.replay import GraphCache
+
+    nb, b = 6, 32
+    a = _matrix("qr", nb * b, cuda)
+    with repro_torch.Session(4, scheduler="compiled",
+                             cache=GraphCache()) as s:
+        s.run(_build("qr", nb, b, to_tiles(a, b)))
+        report = s.run(_build("qr", nb, b, to_tiles(a, b)))
+        ex = s._compiled[report.recording.digest]
+    graphs = [e[1].graph for e in ex.plan.program
+              if e[0] == "fused" and e[1].graph is not None]
+    staged = [k for g in graphs for k in g.staged_keys]
+    assert staged and all(k[0] == "vt" for k in staged)
+    direct = [k for g in graphs for k, _ in g.direct]
+    assert direct and all(k[0] != "vt" for k in direct)
+
+
+def test_capture_runs_while_another_thread_uses_the_card(cuda):
+    """Captures use ``capture_error_mode="thread_local"``: another thread
+    allocating and launching on the card meanwhile neither breaks a capture
+    nor changes the factor."""
+    import threading
+
+    from repro_torch.replay import GraphCache
+
+    nb, b = 6, 32
+    a = _matrix("cholesky", nb * b, cuda)
+    with repro_torch.Session(4) as s:
+        store = to_tiles(a, b)
+        s.run(_build("cholesky", nb, b, store))
+    dynamic = _factors("cholesky", store)
+    stop = threading.Event()
+    errors = []
+
+    def busy():
+        keep, x = [], torch.ones(1 << 16, device=cuda)
+        try:
+            while not stop.is_set():
+                x = x * 1.0000001
+                keep.append(torch.empty((len(keep) + 1) << 20,
+                                        dtype=torch.uint8, device=cuda))
+        except Exception as e:      # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    with repro_torch.Session(4, scheduler="compiled",
+                             cache=GraphCache()) as s:
+        s.run(_build("cholesky", nb, b, to_tiles(a, b)))
+        th = threading.Thread(target=busy)
+        th.start()
+        try:
+            store = to_tiles(a, b)
+            report = s.run(_build("cholesky", nb, b, store))
+        finally:
+            stop.set()
+            th.join()
+    torch.cuda.synchronize()
+    assert not errors
+    assert report.stats["graphs_captured_this_run"] > 0
+    assert torch.equal(_factors("cholesky", store), dynamic)

@@ -21,6 +21,10 @@ def test_port_imports_without_jax_or_reference_package():
         "import repro_torch.replay.recording, repro_torch.replay.cache\n"
         "import repro_torch.replay.executor, repro_torch.replay.remap\n"
         "import repro_torch.replay.pool\n"
+        "import repro_torch.compile, repro_torch.compile.capture\n"
+        "import repro_torch.compile.driver, repro_torch.compile.plan\n"
+        "import repro_torch.obs, repro_torch.obs.trace\n"
+        "import repro_torch.obs.perfetto, repro_torch.obs.export\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

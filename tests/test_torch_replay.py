@@ -393,16 +393,24 @@ def test_pool_adopts_a_cached_recording_at_another_worker_count(tmp_path):
 
 
 def test_pool_compiled_promotion_and_traces_are_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        ReplayPool(compile_after=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ReplayPool(trace=True)
-    with repro_torch.Session(2, scheduler="pool",
-                             pool_kwargs={"compile_after": 2}) as s:
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            s.run(build_cholesky_graph(NB, B, store=_cholesky_store()))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ReplayExecutor(_record_cholesky()[1], trace=True)
+    """The pool's warm -> compiled promotion and its traced serves run in
+    the port: ``compile_after`` validates as the reference's does, a
+    session's pool promotes after its clean replays, and a traced replay
+    leaves its trace."""
+    with pytest.raises(ValueError, match="compile_after"):
+        ReplayPool(compile_after=0)
+    modes = []
+    with repro_torch.Session(2, scheduler="pool", trace=True,
+                             pool_kwargs={"compile_after": 1,
+                                          "warmup_runs": 0}) as s:
+        for _ in range(4):
+            report = s.run(build_cholesky_graph(NB, B, store=_cholesky_store()))
+            modes.append(report.stats["pool_mode"])
+    assert modes == ["record", "replay", "compiled", "compiled"]
+    assert report.stats["compiles"] == 1
+    with ReplayExecutor(_record_cholesky()[1], trace=True) as ex:
+        ex.run(build_cholesky_graph(NB, B, store=_cholesky_store()))
+    assert ex.last_trace is not None and ex.last_trace.events
 
 
 def _toy_prefill(prompt):

@@ -129,9 +129,7 @@ def test_session_closes_its_workers():
     assert not any(t.name.startswith("session3-worker") for t in _port_threads())
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(scheduler="compiled"), dict(trace=True), dict(procs=2)],
-    ids=["compiled", "trace", "procs"])
+@pytest.mark.parametrize("kwargs", [dict(procs=2)], ids=["procs"])
 def test_unported_session_modes_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         repro_torch.Session(2, **kwargs)
