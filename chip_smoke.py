@@ -86,7 +86,28 @@ Phases, each printed as one JSON line:
 9. for each model one more 4-lane decode step under ``torch.profiler``:
    device time by kernel, kernels per lane-step and the device's busy
    share; then one 512-token prefill of one prompt: device time by kernel;
-10. the script's seconds so far, a ``kernels`` summary line, then the
+10. worker processes (``repro_torch.mp``), each process with its own CUDA
+    context on the card.  Before the serving paths, a Cholesky sweep:
+    ``Session(4, scheduler="replay", cache=GraphCache(dir),
+    procs=2).map(cholesky_digest_graph, ...)`` over 5 seeds at the
+    Cholesky path's size; the builder (module-level here, so the children
+    import it from this file) draws ``random_spd(n, seed)`` on the card
+    and adds one sink task returning a digest of the factor (residual,
+    distance from ``torch.linalg.cholesky``, sha256 of its bytes).  Input
+    0 must record in-process and inputs 1-4 replay in both children with
+    no re-record, every digest equal to an in-process dynamic run of its
+    seed, and each child's GEMM launches, read from the child, 10,660 per
+    run; the sweep's wall beside the same sweep through in-process
+    ``map``; then ``Session.submit`` of three seeds' graphs, each built
+    while the previous one runs.  After zamba2-7b's single-process
+    phases, while its model is loaded: the Poisson stream again through
+    ``ContinuousBatchingEngine(procs=2, fns_ref=make_serving_fns)`` on
+    ``Session(2, scheduler="pool")``, each child building its own model;
+    every request's tokens must equal the single-process phase's, no child
+    may die or hand requests to the in-process rescue, both must serve,
+    and each child's kernel launches, read from the child, must match its
+    requests and lane-steps;
+11. the script's seconds so far, a ``kernels`` summary line, then the
     device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -100,6 +121,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -183,6 +205,10 @@ SSD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 SERVE_ARCHS = (("qwen3-14b", True), ("zamba2-7b", True),
                ("mamba2-2.7b", False))
 SERVE_WORKERS = 2                       # serve_lm's --workers default
+#: the model served again across two worker processes: zamba2-7b's three
+#: copies (the parent's, kept for the engine's rescue, and one per child)
+#: take 3 x 13.5 GB; qwen3-14b's would take 3 x 29.5 GB
+MP_SERVE_ARCH = "zamba2-7b"
 SERVE_DEVICE = "cuda"
 BATCH, PROMPT, TOKENS = 4, 512, 32
 POISSON = dict(rate=100.0, prompt_len=(256, 1024), max_new_tokens=(2, 8))
@@ -195,6 +221,82 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+# ---------------------------------------------------------------------------
+# worker-process helpers: module-level, so a spawned child resolves them
+# as ``__main__:<name>`` (spawn imports this file as the child's main
+# module; ``main()`` runs only under the ``__main__`` check)
+def factor_digest(a, store) -> dict:
+    """A compact, picklable digest of the factor in ``store`` (never the
+    tiles): its residual, its largest distance from
+    ``torch.linalg.cholesky(a)`` (and that over L's largest entry, the
+    main path's measure) and the sha256 of its bytes."""
+    import hashlib
+
+    from repro_torch.linalg import cholesky_extract
+
+    L = cholesky_extract(store)
+    norm_a = torch.linalg.matrix_norm(a)
+    resid = (torch.linalg.matrix_norm(a - L @ L.mT) / norm_a).item()
+    l_ref = torch.linalg.cholesky(a)
+    diff = (L - l_ref).abs().max().item()
+    host = L.cpu().numpy()
+    return {"sha256": hashlib.sha256(host.tobytes()).hexdigest(),
+            "residual": resid, "max_abs_diff_vs_torch_cholesky": diff,
+            "max_rel_diff_vs_torch_cholesky": diff / l_ref.abs().max().item(),
+            "finite": bool(np.isfinite(host).all()),
+            "shape": list(host.shape)}
+
+
+def cholesky_digest_graph(value):
+    """``map`` builder: ``(seed, n, tile, device)`` -> the tiled Cholesky
+    graph of ``random_spd(n, seed)`` drawn on ``device`` in the process
+    that builds it, plus one sink task whose result is
+    :func:`factor_digest`.  Every seed gives the same graph shape, so one
+    recording serves the sweep."""
+    from repro_torch.linalg import build_cholesky_graph, random_spd, to_tiles
+
+    seed, n, tile, device = value
+    a = random_spd(n, seed, device=device)
+    store = to_tiles(a, tile, device=device)
+    g = build_cholesky_graph(n // tile, tile, store=store)
+    g.add(lambda ctx: factor_digest(a, store), name="digest", kind="compute",
+          deps=[t for t in g if not g.successors(t)])
+    return g
+
+
+def digest_of(results) -> dict:
+    """The digest among a run's results (every other task returns None)."""
+    (digest,) = [v for v in results.values() if v is not None]
+    return digest
+
+
+def child_launch_counts(ctx, reset: bool = False) -> dict:
+    """Ships to a worker process: its kernels' launch counts (counters are
+    per process), then zeroes them when ``reset``; and the modules of JAX
+    or the reference package it imported (there must be none)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    counts = launch_counts()
+    if reset:
+        reset_launch_counts()
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return {"proc": ctx.index, "pid": os.getpid(), "counts": counts,
+            "jax_or_reference_modules": foreign}
+
+
+def read_children(pool, reset: bool = False) -> list:
+    """Every child's launch counts, in proc order; fails if a child
+    imported JAX or the reference package."""
+    futs = [pool.submit(child_launch_counts, reset=reset, proc=p)
+            for p in range(pool.n_procs)]
+    out = [f.result(timeout=120) for f in futs]
+    for c in out:
+        check(not c["jax_or_reference_modules"],
+              f"child {c['proc']} imported {c['jax_or_reference_modules']}")
+    return out
 
 
 def device_ms(fn, reps: int = 100, *, cold_l2: bool = False) -> float:
@@ -909,7 +1011,7 @@ def serving_poisson_phase(cfg, model, n_requests: int, smi):
     check(row["identical_to_alone"],
           "continuous batching's token streams differ from serving each "
           "request alone")
-    return row
+    return row, batched.tokens_by_rid()
 
 
 def serving_profile_phase(cfg, model, state, floor_bytes, smi) -> None:
@@ -1666,6 +1768,241 @@ def serving_compiled_phase(cfg, model, batch_row, batch_tokens, smi) -> int:
     return launches["decode_attention"]
 
 
+def cholesky_mp_phase(n: int, tile: int, smi: str, n_seeds: int = 5,
+                      device: str = "cuda") -> dict:
+    """Path A: a Cholesky sweep over ``n_seeds`` seeds through
+    ``Session(4, scheduler="replay", procs=2).map``, held against an
+    in-process dynamic run of each seed; the same sweep through in-process
+    ``map`` for its wall; then ``Session.submit`` of three seeds' graphs.
+    Returns the GEMM launches of the sweep and of the submits."""
+    import tempfile
+
+    from repro_torch import Session
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.replay import GraphCache
+
+    nb = n // tile
+    per_run = math.comb(nb + 1, 3)
+    inputs = [(seed, n, tile, device) for seed in range(n_seeds)]
+    row = {"phase": "cholesky_mp", "n": n, "tile": tile, "workers": WORKERS,
+           "procs": 2, "seeds": n_seeds, "card": smi}
+
+    # each seed built and factored in-process by dynamic scheduling: the
+    # digests every other run must equal, and the sequential build + run
+    with Session(WORKERS) as s:
+        s.run(cholesky_digest_graph((n_seeds, 4 * tile, tile, device)))
+        dynamic, build_s, run_s = [], 0.0, 0.0
+        for x in inputs:
+            t0 = time.perf_counter()
+            g = cholesky_digest_graph(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dynamic.append(digest_of(s.run(g).results))
+            build_s += t1 - t0
+            run_s += time.perf_counter() - t1
+            del g
+    row["dynamic"] = {"build_s": build_s, "run_s": run_s}
+    for seed, d in enumerate(dynamic):
+        check(d["finite"] and d["shape"] == [n, n],
+              f"seed {seed}: the dynamic factor is not finite n x n")
+        check(d["residual"] <= 1e-12,
+              f"seed {seed}: residual {d['residual']} > 1e-12")
+        check(d["max_rel_diff_vs_torch_cholesky"] <= 1e-10,
+              f"seed {seed}: L differs from torch.linalg.cholesky by "
+              f"{d['max_rel_diff_vs_torch_cholesky']}")
+
+    # the same sweep through in-process map on one session
+    with tempfile.TemporaryDirectory() as tmp:
+        with Session(WORKERS, scheduler="replay",
+                     cache=GraphCache(tmp)) as s:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local = s.map(cholesky_digest_graph, inputs)
+            row["in_process_map_wall_s"] = time.perf_counter() - t0
+    row["in_process_modes"] = [r.plan.mode for r in local]
+    row["in_process_run_wall_s"] = [r.wall_s for r in local]
+    check([digest_of(r.results)["sha256"] for r in local]
+          == [d["sha256"] for d in dynamic],
+          "the in-process map's factors differ from the dynamic runs'")
+    del local
+
+    # the sweep across two worker processes
+    with tempfile.TemporaryDirectory() as tmp:
+        with Session(WORKERS, scheduler="replay", cache=GraphCache(tmp),
+                     procs=2) as s:
+            t0 = time.perf_counter()
+            pool = s.process_pool()
+            read_children(pool, reset=True)   # the children are up
+            row["pool_start_s"] = time.perf_counter() - t0
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            reports = s.map(cholesky_digest_graph, inputs)
+            row["mp_map_wall_s"] = time.perf_counter() - t0
+            parent = launch_counts()["tile_matmul"]
+            children = read_children(pool)
+            row["cache_entries"] = sorted(
+                f for f in os.listdir(tmp) if f.endswith(".json"))
+    row["mp_over_in_process"] = (row["mp_map_wall_s"]
+                                 / row["in_process_map_wall_s"])
+    row["modes"] = [r.plan.mode for r in reports]
+    row["mp_proc"] = [r.stats.get("mp_proc") for r in reports]
+    row["run_wall_s"] = [r.wall_s for r in reports]
+    digests = [digest_of(r.results) for r in reports]
+    row["residuals"] = [d["residual"] for d in digests]
+    row["bit_identical_to_dynamic"] = ([d["sha256"] for d in digests]
+                                       == [d["sha256"] for d in dynamic])
+    runs = {p: row["mp_proc"].count(p) for p in (0, 1)}
+    row["parent_tile_matmul_launches"] = parent
+    row["child_tile_matmul_launches"] = {
+        c["proc"]: c["counts"]["tile_matmul"] for c in children}
+    row["child_pids"] = [c["pid"] for c in children]
+    row["runs_per_child"] = runs
+    row["launches_per_run"] = per_run
+
+    # Session.submit: each graph built while the previous one runs
+    with Session(WORKERS) as s:
+        s.run(cholesky_digest_graph((n_seeds, 4 * tile, tile, device)))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [s.submit(cholesky_digest_graph(x)) for x in inputs[:3]]
+        submitted = [digest_of(f.result(timeout=600).results) for f in futs]
+        row["submit_wall_s"] = time.perf_counter() - t0
+        submit_launches = launch_counts()["tile_matmul"]
+    row["submit_sequential_s"] = (build_s + run_s) * 3 / n_seeds
+    row["submit_launches"] = submit_launches
+    row["submit_bit_identical"] = ([d["sha256"] for d in submitted]
+                                   == [d["sha256"] for d in dynamic[:3]])
+    emit(row)
+
+    check(row["modes"] == ["record"] + ["replay"] * (n_seeds - 1),
+          f"the sweep's plan modes are {row['modes']}: input 0 must record "
+          "in-process and every child replay the adopted recording")
+    check(row["mp_proc"][0] is None and set(row["mp_proc"][1:]) == {0, 1},
+          f"the sweep ran on processes {row['mp_proc']}, not both children")
+    check(len(row["cache_entries"]) == 1,
+          f"the shared cache holds {row['cache_entries']}: a child recorded "
+          "its own")
+    check(row["bit_identical_to_dynamic"],
+          "a factor of the sweep differs from the in-process dynamic run's")
+    check(max(row["residuals"]) <= 1e-12,
+          f"a residual of the sweep is {max(row['residuals'])} > 1e-12")
+    check(parent == per_run, f"the in-process seed run launched the GEMM "
+          f"{parent} times, expected {per_run}")
+    for c in children:
+        want = runs[c["proc"]] * per_run
+        check(c["counts"] == {**c["counts"], "tile_matmul": want}
+              and sum(c["counts"].values()) == want,
+              f"child {c['proc']} launched {c['counts']}, expected "
+              f"{want} GEMMs ({runs[c['proc']]} runs)")
+    check(row["submit_bit_identical"],
+          "a submitted run's factor differs from the dynamic run's")
+    check(submit_launches == 3 * per_run,
+          f"the submitted runs launched the GEMM {submit_launches} times, "
+          f"expected {3 * per_run}")
+    return {"cholesky_mp": parent + sum(
+                c["counts"]["tile_matmul"] for c in children),
+            "cholesky_submit": submit_launches}
+
+
+def serving_mp_phase(cfg, model, n_requests: int, single_row: dict,
+                     single_tokens: dict, smi: str, **factory) -> dict:
+    """Path B: the Poisson stream of ``serving_poisson_phase`` through
+    ``ContinuousBatchingEngine(procs=2)`` on ``Session(2,
+    scheduler="pool")``, each child building the model with
+    ``serve_lm.make_serving_fns``; the parent's model stays loaded for the
+    engine's in-process rescue.  Returns the children's launches by
+    kernel."""
+    from repro_torch import Session
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import ContinuousBatchingEngine, PoissonWorkload
+
+    workload = PoissonWorkload(POISSON["rate"], n_requests, seed=0,
+                               prompt_len=POISSON["prompt_len"],
+                               max_new_tokens=POISSON["max_new_tokens"],
+                               vocab_size=cfg.vocab_size)
+    max_len = POISSON["prompt_len"][1] + POISSON["max_new_tokens"][1] + 1
+    factory = {"arch": cfg.name, "prompt_len": POISSON["prompt_len"][1],
+               "tokens": POISSON["max_new_tokens"][1], "device": "cuda",
+               **factory}
+    row = {"phase": "serving_mp", "arch": cfg.name, "procs": 2,
+           "workers": SERVE_WORKERS, "scheduler": "pool", "max_batch": 4,
+           "workload": workload.describe(), "max_len": max_len,
+           "fns_ref": "repro_torch.serving.serve_lm:make_serving_fns",
+           "factory": factory, "card": smi}
+    free, total = torch.cuda.mem_get_info()
+    row["free_gb_before"] = free / 1e9
+    with Session(SERVE_WORKERS, scheduler="pool",
+                 pool_kwargs={"warmup_runs": 0}, procs=2) as session:
+        t0 = time.perf_counter()
+        pool = session.process_pool()
+        read_children(pool, reset=True)
+        row["pool_start_s"] = time.perf_counter() - t0
+        # each child's serve_open round trip (it builds the child's model),
+        # timed where the engine sends it; the protocol is unchanged
+        opened = {}
+        send = pool.request
+
+        def timed_request(proc, op, payload=None):
+            fut = send(proc, op, payload)
+            if op == "serve_open":
+                t = time.perf_counter()
+                fut.add_done_callback(lambda f, p=proc, t=t: opened.__setitem__(
+                    p, time.perf_counter() - t))
+            return fut
+
+        pool.request = timed_request
+        engine = ContinuousBatchingEngine(
+            session, lambda cache, tok: decode_step(model, cfg, cache, tok),
+            lambda prompt: prefill(model, cfg, {"tokens": prompt},
+                                   max_len=max_len),
+            max_batch=4, procs=2, fns_ref=(row["fns_ref"], factory))
+        t0 = time.perf_counter()
+        report = engine.run(workload.requests())
+        row["wall_s"] = time.perf_counter() - t0
+        del pool.request
+        children = read_children(pool)
+        free, _ = torch.cuda.mem_get_info()
+        row["free_gb_after_run"] = free / 1e9
+    free, _ = torch.cuda.mem_get_info()
+    row["free_gb_after_close"] = free / 1e9
+    row["total_gb"] = total / 1e9
+    stats = engine.mp_stats
+    row["serve_open_s"] = {p: opened.get(p) for p in (0, 1)}
+    row["dead"], row["fallback"] = stats["dead"], stats["fallback"]
+    row["per_proc"] = [{k: s[k] for k in ("proc", "pid", "completed",
+                                          "steps", "warm_steps", "lane_steps",
+                                          "records", "wall_s")}
+                       for s in stats["per_proc"]]
+    row["child_launches"] = {c["proc"]: c["counts"] for c in children}
+    row.update(report.summary())
+    row["single_process"] = {k: single_row[k] for k in (
+        "p50_tok_ms", "p99_tok_ms", "ttft_p50_ms", "ttft_p99_ms", "tok_s",
+        "wall_s")}
+    row["tokens_bit_identical"] = report.tokens_by_rid() == single_tokens
+    emit(row)
+
+    check(stats["dead"] == [] and stats["fallback"] == 0,
+          f"a child died or handed requests to the in-process rescue: "
+          f"dead {stats['dead']}, fallback {stats['fallback']}")
+    check(report.completed == n_requests,
+          f"{report.completed} of {n_requests} requests completed")
+    check(sorted(s["proc"] for s in stats["per_proc"]) == [0, 1]
+          and all(s["completed"] > 0 for s in stats["per_proc"]),
+          f"not both children served: {row['per_proc']}")
+    check(row["tokens_bit_identical"],
+          "the sharded serve's tokens differ from the single-process phase's")
+    by_kernel = dict.fromkeys(KERNELS, 0)
+    for s in stats["per_proc"]:
+        got = row["child_launches"][s["proc"]]
+        want = expected_launches(cfg, s["completed"], s["lane_steps"])
+        check(got == want, f"child {s['proc']} launched {got}, expected "
+              f"{want}")
+        for k, v in got.items():
+            by_kernel[k] += v
+    return by_kernel
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=7680,
@@ -1782,6 +2119,10 @@ def main() -> int:
     del qr_half
     gc.collect()
     torch.cuda.empty_cache()
+    # worker processes: spawned after every kernel library was built above
+    mp_launches = cholesky_mp_phase(args.n, t, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     batch_rows = {}
     for arch, poisson in SERVE_ARCHS:
@@ -1794,8 +2135,15 @@ def main() -> int:
             batch_rows[arch]["compiled_decode_attention_launches"] = \
                 serving_compiled_phase(cfg, model, batch_rows[arch],
                                        state.tokens(), smi)
-            serving_poisson_phase(cfg, model, args.requests, smi)
+            poisson_row, poisson_tokens = serving_poisson_phase(
+                cfg, model, args.requests, smi)
         serving_profile_phase(cfg, model, state, floor_bytes, smi)
+        if arch == MP_SERVE_ARCH:
+            # sharded serving while the parent's model is loaded (the
+            # engine's rescue needs it); three copies of qwen3-14b would
+            # not fit the card
+            serving_mp = serving_mp_phase(cfg, model, args.requests,
+                                          poisson_row, poisson_tokens, smi)
         del model, state                  # free the card for the next model
         gc.collect()
         torch.cuda.empty_cache()
@@ -1815,24 +2163,30 @@ def main() -> int:
                "qr": qr_runs["hybrid"]["tile_matmul_launches"],
                "cholesky_compiled": compiled_launches,
                "lu_compiled": compiled_lu_launches,
-               f"qr_compiled_n{half}": compiled_qr_launches}
+               f"qr_compiled_n{half}": compiled_qr_launches,
+               **mp_launches}
     gemm = line("tile_matmul", main_case, sum(by_path.values()))
     gemm["launches_by_path"] = by_path
     qwen = batch_rows["qwen3-14b"]
-    decode = line("decode_attention", decode_main,
-                  qwen["decode_attention_launches"]
-                  + qwen["compiled_decode_attention_launches"])
-    decode["launches_by_path"] = {
+    decode_by_path = {
         "serving": qwen["decode_attention_launches"],
-        "serving_compiled": qwen["compiled_decode_attention_launches"]}
+        "serving_compiled": qwen["compiled_decode_attention_launches"],
+        "serving_mp": serving_mp["decode_attention"]}
+    decode = line("decode_attention", decode_main,
+                  sum(decode_by_path.values()))
+    decode["launches_by_path"] = decode_by_path
+    # the sharded serve (zamba2-7b) in the children, beside each kernel's
+    # single-process serving path
+    flash_by_path = {"serving": qwen["flash_attention_launches"],
+                     "serving_mp": serving_mp["flash_attention"]}
+    flash = line("flash_attention", flash_main, sum(flash_by_path.values()))
+    flash["launches_by_path"] = flash_by_path
+    scan_by_path = {"serving": batch_rows["zamba2-7b"]["ssd_scan_launches"],
+                    "serving_mp": serving_mp["ssd_scan"]}
+    scan = line("ssd_scan", ssd_main, sum(scan_by_path.values()))
+    scan["launches_by_path"] = scan_by_path
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [
-        gemm,
-        line("flash_attention", flash_main,
-             batch_rows["qwen3-14b"]["flash_attention_launches"]),
-        decode,
-        line("ssd_scan", ssd_main,
-             batch_rows["zamba2-7b"]["ssd_scan_launches"])]})
+    emit({"kernels": [gemm, flash, decode, scan]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -53,9 +53,15 @@ Scheduler semantics
 
 ``trace=True`` turns the flight recorder on: ``RunReport.trace`` is the
 run's assembled :class:`~repro_torch.obs.trace.RuntimeTrace`
-(``repro_torch.obs.write_trace`` exports it for Perfetto).  ``procs=`` and
-:meth:`Session.submit` (worker processes) are not ported yet: they raise
-``NotImplementedError`` naming ROADMAP Queue A item 6.
+(``repro_torch.obs.write_trace`` exports it for Perfetto).
+
+``procs=N`` gives the session a pool of worker *processes*
+(:mod:`repro_torch.mp`, :meth:`Session.process_pool`): :meth:`Session.map`
+then shards a sweep across them, and a serving engine built with
+``procs=`` shards its request stream.  :meth:`Session.submit` queues a
+graph on an in-process thread and returns a
+:class:`~repro_torch.mp.RunFuture` at once, so the caller builds the next
+graph while this one runs.
 
 On a CUDA device ``RunReport.wall_s`` is host time until every task body
 has *enqueued* its work; time the device by bracketing the run with
@@ -75,18 +81,6 @@ from ..core.taskgraph import TaskGraph
 __all__ = ["Plan", "PlanError", "RunReport", "Session"]
 
 _SCHEDULERS = ("dynamic", "replay", "pool", "compiled")
-
-#: reference options the port does not run yet, with the ROADMAP item that
-#: ports each
-_NOT_PORTED = {
-    "procs": "ROADMAP Queue A item 6 (mp/)",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error raised for a reference feature the port lacks so far."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see {_NOT_PORTED[what]}")
 
 
 class PlanError(RuntimeError):
@@ -214,12 +208,12 @@ class Session:
     ):
         if workers < 1:
             raise ValueError(f"a session needs >= 1 worker, got {workers}")
+        if procs is not None and procs < 1:
+            raise ValueError(f"procs must be >= 1 (or None), got {procs}")
         if scheduler not in _SCHEDULERS:
             raise ValueError(
                 f"unknown scheduler {scheduler!r}; valid schedulers: "
                 f"{', '.join(_SCHEDULERS)}")
-        if procs is not None:
-            raise not_ported("procs")
         resolve_policy(policy)       # typos fail HERE, with the valid names
         if scheduler in ("replay", "compiled") and cache is None:
             from ..replay.cache import GraphCache
@@ -237,6 +231,7 @@ class Session:
         self.stall_timeout = stall_timeout
         self.block_poll = block_poll
         self.pool_kwargs = dict(pool_kwargs or {})
+        self.procs = procs
 
         self._lock = threading.RLock()
         self._closed = False
@@ -245,13 +240,20 @@ class Session:
         self._executors: Dict[str, Any] = {}             # digest -> executor
         self._pool: Optional[Any] = None                 # ReplayPool
         self._compiled: Dict[str, Any] = {}              # digest -> CompiledExecutor
+        self._mp_pool: Optional[Any] = None              # repro_torch.mp.ProcessPool
+        self._submit_queue: Optional[Any] = None         # queue.Queue
+        self._submit_thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
     # lifecycle
     def close(self) -> None:
         """Release the core lease and stop session-owned executors.  Shared
         cores stay warm for other lessees; the last lessee's release stops
-        the threads (which keeps the suite's thread-leak check honest)."""
+        the threads (which keeps the suite's thread-leak check honest).
+        The async-submit worker is drained first (queued runs complete or
+        fail loudly — never silently dropped), then the process pool, then
+        the in-process executors."""
+        self._drain_submit_thread()
         with self._lock:
             if self._closed:
                 return
@@ -262,6 +264,9 @@ class Session:
             pool, self._pool = self._pool, None
             runtime, self._runtime = self._runtime, None
             core, self._core = self._core, None
+            mp_pool, self._mp_pool = self._mp_pool, None
+        if mp_pool is not None:
+            mp_pool.shutdown()
         for ex in executors:
             ex.shutdown()
         if pool is not None:
@@ -354,10 +359,82 @@ class Session:
                 f"session scheduler is {self.scheduler!r}; no pool exists")
         return self._serving_pool()
 
-    def submit(self, graph: TaskGraph, **kwargs: Any):
-        """Asynchronous submission lives in :mod:`repro_torch.mp`, which is
-        not ported yet."""
-        raise not_ported("procs")
+    # ------------------------------------------------------------------
+    # multi-process substrate (repro_torch.mp)
+    def process_pool(self, procs: Optional[int] = None):
+        """The session's :class:`~repro_torch.mp.ProcessPool` (built lazily from
+        this session's configuration — scheduler, worker count, policy and
+        the cache's on-disk path all mirror into each child).  ``procs``
+        overrides the count the session was built with; the pool is built
+        once and reused, and :meth:`close` shuts it down."""
+        with self._lock:
+            self._require_open()
+            n = procs if procs is not None else self.procs
+            if n is None:
+                raise PlanError(
+                    "session was built without procs=N and none was given")
+            if self._mp_pool is None:
+                from ..mp import ProcessPool, WorkerSpec
+                self._mp_pool = ProcessPool(n, WorkerSpec.from_session(self))
+            elif self._mp_pool.n_procs != n:
+                raise PlanError(
+                    f"session already owns a {self._mp_pool.n_procs}-proc "
+                    f"pool; cannot re-size it to {n}")
+            return self._mp_pool
+
+    # ------------------------------------------------------------------
+    # async submission (graph build overlaps execution)
+    def submit(self, graph: TaskGraph, *, record: Optional[bool] = None,
+               key: Optional[Any] = None, timeout: float = 300.0):
+        """Queue ``graph`` for execution and return a
+        :class:`~repro_torch.mp.RunFuture` immediately — the caller keeps
+        building the *next* graph while this one runs (task bodies that
+        release the GIL genuinely overlap with the build).  Runs submitted
+        on one session still execute one at a time, in order; the future
+        resolves to the run's :class:`RunReport` (or carries its
+        exception).  :meth:`close` drains the queue before shutting
+        executors down."""
+        from ..mp.futures import RunFuture
+
+        fut = RunFuture()
+        with self._lock:
+            self._require_open()
+            if self._submit_thread is None:
+                import queue
+                self._submit_queue = queue.Queue()
+                self._submit_thread = threading.Thread(
+                    target=self._submit_worker, name="session-submit",
+                    daemon=True)
+                self._submit_thread.start()
+            self._submit_queue.put((fut, graph, record, key, timeout))
+        return fut
+
+    def _submit_worker(self) -> None:
+        while True:
+            item = self._submit_queue.get()
+            if item is None:
+                return
+            fut, graph, record, key, timeout = item
+            try:
+                fut.set_result(
+                    self.run(graph, record=record, key=key, timeout=timeout))
+            except BaseException as e:       # noqa: BLE001 - via future
+                fut.set_exception(e)
+
+    def _drain_submit_thread(self) -> None:
+        """Stop the async-submit worker: finish in-flight runs, fail
+        anything enqueued after the sentinel (racing a close)."""
+        with self._lock:
+            thread, self._submit_thread = self._submit_thread, None
+            q = self._submit_queue
+        if thread is None or q is None:
+            return
+        q.put(None)
+        thread.join()
+        while not q.empty():                 # submits that raced the close
+            item = q.get()
+            if item is not None:
+                item[0].set_exception(PlanError("session is closed"))
 
     # ------------------------------------------------------------------
     # planning
@@ -585,11 +662,20 @@ class Session:
         maps each input to a graph; the first graph is planned once and the
         plan is reused for every later input (re-planned a single time when
         the first run records, so the rest of the sweep replays/compiles).
-        Returns the per-input :class:`RunReport` list.  ``procs`` (sharding the
-        sweep over worker processes) raises ``NotImplementedError``."""
+        Returns the per-input :class:`RunReport` list.
+
+        With ``procs`` (or a session built with ``procs=N``) the sweep
+        shards across worker *processes*: the first input runs in-process
+        (seeding the on-disk cache when one is configured), the rest
+        round-robin to pool children that adopt the seeded recording and
+        replay warm — no GIL sharing, no per-child recording runs.
+        ``builder`` must then be a module-level callable (it ships by
+        import reference, see :func:`repro_torch.mp.callable_ref`)."""
         self._require_open()
-        if procs is not None:
-            raise not_ported("procs")
+        n_procs = procs if procs is not None else self.procs
+        if n_procs is not None:
+            return self._map_mp(builder, inputs, n_procs, record=record,
+                                key=key, timeout=timeout)
         reports = []
         plan: Optional[Plan] = None
         for x in inputs:
@@ -601,6 +687,45 @@ class Session:
                     plan = None    # re-plan once: the next call hits the cache
             else:
                 reports.append(self.run(graph=g, plan=plan, timeout=timeout))
+        return reports
+
+    def _map_mp(self, builder, inputs, procs: int, *, record, key,
+                timeout: float):
+        """Sharded sweep: input 0 in-process (seeds the shared disk cache),
+        inputs 1..n round-robin across the process pool."""
+        from ..mp import callable_ref
+        from ..mp.tasks import run_builder
+
+        try:
+            ref = callable_ref(builder)
+        except ValueError as e:
+            raise PlanError(
+                f"map(procs={procs}) ships the builder to worker processes "
+                f"by import reference; {e}") from e
+        inputs = list(inputs)
+        if not inputs:
+            return []
+        pool = self.process_pool(procs)
+        seed_report = self.run(graph=self._as_taskgraph(builder(inputs[0])),
+                               record=record, key=key, timeout=timeout)
+        futures = [
+            pool.submit(run_builder, ref, x, record=record, timeout=timeout)
+            for x in inputs[1:]
+        ]
+        reports = [seed_report]
+        for fut in futures:
+            out = fut.result(timeout=timeout)
+            stats = dict(out["stats"])
+            stats["mp_proc"] = out["proc"]
+            plan = Plan(
+                mode=out["mode"], n_workers=out["n_workers"],
+                policy=self.policy, graph=seed_report.plan.graph,
+                digest=out["digest"], remapped_from=out["remapped_from"],
+                reason=f"executed in worker process {out['proc']}")
+            reports.append(RunReport(
+                results=out["results"], plan=plan, recording=None,
+                wall_s=out["wall_s"], scheduler=out["scheduler"],
+                n_workers=out["n_workers"], stats=stats))
         return reports
 
     def _run_pool(self, plan: Plan, tg: TaskGraph,

@@ -16,8 +16,9 @@ that stream on the primitives the runtime already has:
   (backpressure for free: a full queue refuses/blocks submitters), per-step
   dynamic batch composition from the in-flight set, per-request early exit
   on EOS / max-token budget, and per-batch-shape decode-step graphs served
-  through a :class:`~repro_torch.api.session.Session` (the ``dynamic``
-  scheduler; the pool's warm replays wait for record-and-replay);
+  through a :class:`~repro_torch.api.session.Session` — with
+  ``scheduler="pool"`` most steps replay a warm recording, and with
+  ``procs=N`` the stream shards by request id across worker processes;
 * :class:`~repro_torch.serving.metrics.ServingReport` — per-request
   lifecycle records rolled up into p50/p99 per-token latency,
   time-to-first-token and sustained tok/s.

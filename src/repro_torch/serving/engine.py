@@ -1,8 +1,7 @@
 """Continuous-batching decode engine.
 
-The port of the reference's ``repro/serving/engine.py``, without the
-multi-process front end (``procs=`` raises ``NotImplementedError``, ROADMAP
-Queue A item 6).  One :class:`ContinuousBatchingEngine` turns a stream of
+The port of the reference's ``repro/serving/engine.py``.  One
+:class:`ContinuousBatchingEngine` turns a stream of
 :class:`~repro_torch.serving.request.Request`\\ s into decode-step task
 graphs executed by a caller-owned
 :class:`~repro_torch.api.session.Session`:
@@ -46,12 +45,12 @@ exactly.
 
 from __future__ import annotations
 
+import itertools
 import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from ..api.graph import Graph
-from ..api.session import not_ported
 from ..core.taskgraph import Channel
 from .metrics import RequestRecord, ServingReport
 from .request import Request, RequestState
@@ -114,10 +113,24 @@ class ContinuousBatchingEngine:
         deterministic virtual clock: each decode step advances engine time
         by exactly this many seconds.
     procs / fns_ref:
-        The reference's multi-process front end; ``procs`` raises
-        ``NotImplementedError`` until ``mp/`` is ported (ROADMAP Queue A
-        item 6).
+        ``procs=N`` shards :meth:`run` across ``N`` worker *processes*
+        (the session's :class:`~repro_torch.mp.ProcessPool`): requests
+        route by ``rid % N`` to child-local engines, each with its own
+        interpreter — no GIL sharing — and per-request streams stay
+        bit-identical because every request decodes against its own KV
+        cache regardless of which child batches it.  ``fns_ref`` is then
+        required: a module-level factory reference (``"module:qualname"``
+        or ``(ref, kwargs)``) returning ``(decode_fn, prefill_fn[,
+        sample_fn])`` — code ships by import, never by pickle; each child
+        builds its own model (on a CUDA device: its own copy on the card).
+        A child that dies mid-stream has its remaining requests served by
+        a fresh in-process engine (same fns), so no request is ever
+        dropped; ``mp_stats`` says whether that happened.
     """
+
+    #: process-wide unique serve-stream ids (several engines may share one
+    #: session's pool)
+    _mp_stream_ids = itertools.count(1)
 
     def __init__(
         self,
@@ -135,7 +148,13 @@ class ContinuousBatchingEngine:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if procs is not None:
-            raise not_ported("procs")
+            if procs < 1:
+                raise ValueError(f"procs must be >= 1 (or None), got {procs}")
+            if fns_ref is None:
+                raise ValueError(
+                    "procs=N needs fns_ref: child processes rebuild the "
+                    "engine fns from a module-level factory reference "
+                    "(callables do not cross a spawn boundary)")
         capacity = (2 * max_batch if admission_capacity is None
                     else admission_capacity)
         if capacity < 1:
@@ -147,6 +166,10 @@ class ContinuousBatchingEngine:
         self.session = session
         self.max_batch = max_batch
         self.step_time = step_time
+        self.procs = procs
+        self.fns_ref = fns_ref
+        #: per-proc summaries / fallback accounting of the last mp run
+        self.mp_stats: Optional[Dict[str, Any]] = None
         self._decode_fn = decode_fn
         self._prefill_fn = prefill_fn
         self._sample_fn = sample_fn
@@ -349,6 +372,8 @@ class ContinuousBatchingEngine:
         admission queue wait — their queue delay is the backpressure
         showing up in TTFT), step the decode loop until every request has
         finished, and return the :class:`ServingReport`."""
+        if self.procs is not None:
+            return self._run_mp(requests, timeout=timeout)
         pending: Deque[Request] = deque(
             sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         self._reset_clock()
@@ -377,6 +402,168 @@ class ContinuousBatchingEngine:
         return self.report()
 
     # ------------------------------------------------------------------
+    # sharded multi-process serving
+    def _run_mp(self, requests: Any, *, timeout: float) -> ServingReport:
+        """Drive the stream across the session's process pool.
+
+        Requests shard by ``rid % procs`` into per-child serve streams;
+        the parent releases each request when its ``arrival_s`` comes due
+        (parent **wall** clock — children may run a virtual clock for
+        deterministic latency numbers, but admission ordering is real
+        time), throttled to a per-child outstanding cap of
+        ``admission_capacity + max_batch`` on top of the child's own
+        bounded queue.  A child-side :class:`AdmissionFull` crosses the
+        pipe as a failed future and the request is retried; a dead child
+        moves its unfinished shard to an in-process fallback engine.  The
+        merged report carries every request's record plus the summed child
+        step counters."""
+        from ..mp.futures import WorkerDied, WorkerError
+
+        pool = self.session.process_pool(self.procs)
+        n = pool.n_procs
+        sid = next(self._mp_stream_ids)
+        open_futs = pool.broadcast("serve_open", {
+            "stream": sid,
+            "fns_ref": self.fns_ref,
+            "engine": {"max_batch": self.max_batch,
+                       "admission_capacity": self.admission_capacity,
+                       "step_time": self.step_time},
+        })
+        live = set()
+        for p, fut in enumerate(open_futs):
+            try:
+                fut.result(timeout=60.0)
+                live.add(p)
+            except (WorkerDied, WorkerError):
+                pass
+        if not live:
+            raise RuntimeError(
+                f"no live worker process accepted serve stream {sid}")
+
+        shards: Dict[int, Deque[Request]] = {p: deque() for p in range(n)}
+        for req in sorted(requests, key=lambda r: (r.arrival_s, r.rid)):
+            shards[req.rid % n].append(req)
+        retries: Dict[int, Deque[Request]] = {p: deque() for p in range(n)}
+        outstanding: Dict[int, int] = {p: 0 for p in range(n)}
+        peak: Dict[int, int] = {p: 0 for p in range(n)}
+        cap = self.admission_capacity + self.max_batch
+        in_flight: List[Tuple[Any, int, Request]] = []
+        records: Dict[int, RequestRecord] = {}
+        fallback: List[Request] = []
+        dead: List[int] = []
+
+        def _bury(p: int) -> None:
+            """Move everything worker ``p`` still owes to the fallback.
+            Records the death even when ``p`` never went live (a worker
+            killed while its serve_open was still in flight)."""
+            live.discard(p)
+            if p not in dead:
+                dead.append(p)
+            fallback.extend(retries[p])
+            retries[p].clear()
+            fallback.extend(shards[p])
+            shards[p].clear()
+
+        for p in range(n):
+            if p not in live:
+                _bury(p)
+
+        t0 = time.perf_counter()
+        t_limit = time.monotonic() + timeout
+        while any(shards.values()) or any(retries.values()) or in_flight:
+            if time.monotonic() > t_limit:
+                raise TimeoutError(
+                    f"mp serving loop exceeded {timeout}s with "
+                    f"{len(in_flight)} submits outstanding")
+            now = time.perf_counter() - t0
+            progressed = False
+            for p in list(live):
+                queue = retries[p] if retries[p] else shards[p]
+                while (queue and outstanding[p] < cap
+                       and (queue is retries[p]
+                            or queue[0].arrival_s <= now)):
+                    req = queue.popleft()
+                    fut = pool.request(
+                        p, "serve_submit", {"stream": sid, "request": req})
+                    in_flight.append((fut, p, req))
+                    outstanding[p] += 1
+                    peak[p] = max(peak[p], outstanding[p])
+                    progressed = True
+                    queue = retries[p] if retries[p] else shards[p]
+            still: List[Tuple[Any, int, Request]] = []
+            for fut, p, req in in_flight:
+                if not fut.done():
+                    still.append((fut, p, req))
+                    continue
+                outstanding[p] -= 1
+                progressed = True
+                try:
+                    rec = fut.result(timeout=0)
+                except WorkerError as e:
+                    if e.kind == "AdmissionFull":
+                        retries[p].append(req)   # backpressure: resubmit
+                    else:
+                        _bury(p)
+                        fallback.append(req)
+                except WorkerDied:
+                    _bury(p)
+                    fallback.append(req)
+                else:
+                    records[rec.rid] = rec
+            in_flight = still
+            if not progressed:
+                time.sleep(1e-3)
+
+        summaries: List[Dict[str, Any]] = []
+        for p in sorted(live):
+            try:
+                summaries.append(pool.request(
+                    p, "serve_close", {"stream": sid}).result(timeout=60.0))
+            except (WorkerDied, WorkerError):
+                dead.append(p)
+
+        steps = sum(s["steps"] for s in summaries)
+        warm_steps = sum(s["warm_steps"] for s in summaries)
+        lane_steps = sum(s["lane_steps"] for s in summaries)
+        shape_counts: Dict[int, int] = {}
+        for s in summaries:
+            for k, c in s["shape_counts"].items():
+                shape_counts[k] = shape_counts.get(k, 0) + c
+        if fallback:
+            # a dead child's stranded requests are re-served in-process:
+            # per-request KV caches make the token streams identical to
+            # what the child would have produced
+            rescue = ContinuousBatchingEngine(
+                self.session, self._decode_fn, self._prefill_fn,
+                sample_fn=self._sample_fn, max_batch=self.max_batch,
+                admission_capacity=self.admission_capacity,
+                step_time=self.step_time)
+            report = rescue.run(fallback, timeout=timeout)
+            records.update(report.records)
+            steps += report.steps
+            warm_steps += report.warm_steps
+            lane_steps += report.lane_steps
+            for k, c in report.shape_counts.items():
+                shape_counts[k] = shape_counts.get(k, 0) + c
+        self.mp_stats = {
+            "stream": sid,
+            "per_proc": summaries,
+            "dead": sorted(set(dead)),
+            "fallback": len(fallback),
+            "peak_outstanding": peak,
+            "cap": cap,
+        }
+        return ServingReport(
+            records=records,
+            steps=steps,
+            warm_steps=warm_steps,
+            lane_steps=lane_steps,
+            max_batch=self.max_batch,
+            wall_s=time.perf_counter() - t0,
+            shape_counts=shape_counts,
+            trace=None,
+        )
+
     def report(self) -> ServingReport:
         """Snapshot of everything served so far (complete requests only
         appear with their final token streams)."""

@@ -12,10 +12,10 @@ the bit-identical continuous-batching-vs-per-request tests lean on.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, List, Optional
 
 import numpy as np
-import torch
 
 
 def token_id(tok: Any) -> int:
@@ -28,8 +28,13 @@ def token_id(tok: Any) -> int:
     per-lane host synchronisation the reference makes too (its
     ``np.asarray`` materialises the token), and it is intended: the engine
     needs the id to decide on EOS and budgets, and the step timestamp taken
-    right after it covers the real compute."""
-    if isinstance(tok, torch.Tensor):
+    right after it covers the real compute.
+
+    The module does not import torch (no tensor exists before torch is
+    imported), so a serving worker process whose model is not a torch
+    model starts without it."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(tok, torch.Tensor):
         if tok.numel() != 1:
             raise ValueError(f"expected a single sampled token, got shape "
                              f"{tuple(tok.shape)}")

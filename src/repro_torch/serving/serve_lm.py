@@ -24,9 +24,13 @@ reference's small smoke configuration, ``--layers N`` cuts the depth,
 1 (the reference draws them with ``jax.random``, so the ids differ).
 ``--trace PATH`` serves with the flight recorder on and writes the last
 decode step (under ``--arrivals poisson``: the most heavily loaded step) as
-Perfetto JSON; it needs a task-graph scheduler.  ``--procs`` raises
-``NotImplementedError`` (ROADMAP Queue A item 6).  ``dynamic`` stays the
-default here, as the CUDA runs of earlier slices used it.
+Perfetto JSON; it needs a task-graph scheduler.  ``--procs N`` (with
+``--arrivals poisson`` only, and not with ``--trace``) shards the stream
+across N worker processes (:mod:`repro_torch.mp`): each child builds the
+same model from seed 0 through :func:`make_serving_fns`, which it imports
+by reference, so the sharded token streams stay bit-identical to one
+process.  ``dynamic`` stays the default here, as the CUDA runs of earlier
+slices used it.
 
 Run:  python -m repro_torch.serving.serve_lm --reduced --device cpu
       python -m repro_torch.serving.serve_lm --arch zamba2-7b --reduced \
@@ -37,6 +41,7 @@ Run:  python -m repro_torch.serving.serve_lm --reduced --device cpu
           --scheduler pool --cache-dir /tmp/graphs
       python -m repro_torch.serving.serve_lm --reduced --device cpu \\
           --trace trace.json
+      python -m repro_torch.serving.serve_lm --arrivals poisson --procs 2
 """
 
 from __future__ import annotations
@@ -48,12 +53,41 @@ import time
 import numpy as np
 import torch
 
-from ..api.session import Session, not_ported
+from ..api.session import Session
 from ..configs import get_config
 from ..linalg.tiles import resolve_device
 from ..models import (build_decode_graph, decode_step, greedy_sample,
                       init_params, make_decode_state, prefill)
 from ..replay import GraphCache
+
+
+def model_config(arch: str, reduced: bool = False, layers: int = 0):
+    """``arch``'s configuration: ``reduced`` takes its small smoke
+    configuration, ``layers`` (when > 0) cuts the depth."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def make_serving_fns(arch: str = "qwen3-14b", prompt_len: int = 64,
+                     tokens: int = 32, reduced: bool = False, layers: int = 0,
+                     device=None):
+    """Engine-fns factory for ``--procs``: worker processes import it by
+    reference (``repro_torch.serving.serve_lm:make_serving_fns``) and build
+    the parent's model — the same configuration, the same seed-0 weights
+    (drawn on ``device`` from a seeded generator, so every process draws
+    the same bits) and the same cache length ``prompt_len + tokens + 1`` —
+    so sharded token streams stay bit-identical to one process.  Returns
+    ``(decode_fn, prefill_fn)``."""
+    cfg = model_config(arch, reduced, layers)
+    model = init_params(cfg, seed=0, device=resolve_device(device))
+    max_len = prompt_len + tokens + 1
+    return (lambda cache, tok: decode_step(model, cfg, cache, tok),
+            lambda prompt: prefill(model, cfg, {"tokens": prompt},
+                                   max_len=max_len))
 
 
 def _sync(device: torch.device) -> None:
@@ -67,7 +101,8 @@ def _session(args, **pool_kwargs) -> Session:
     cache = GraphCache(args.cache_dir) if args.cache_dir and pool else None
     kwargs = {"pool_kwargs": pool_kwargs} if pool else {}
     return Session(args.workers, scheduler=args.scheduler, cache=cache,
-                   trace=bool(args.trace), **kwargs)
+                   trace=bool(args.trace), procs=args.procs or None,
+                   **kwargs)
 
 
 def _write_trace(args, cfg, trace, **extra) -> None:
@@ -90,6 +125,16 @@ def _print_pool(args, session: Session) -> None:
             print(f"pool[{ckey[:20]}…]: {stats}")
 
 
+def _print_procs(mp_stats) -> None:
+    for s in mp_stats["per_proc"]:
+        print(f"proc{s['proc']}[pid {s['pid']}]: {s['completed']} requests, "
+              f"{s['steps']} steps ({s['warm_steps']} warm), "
+              f"{s['records']} records")
+    if mp_stats["dead"]:
+        print(f"dead workers {mp_stats['dead']}: {mp_stats['fallback']} "
+              "requests re-served in-process")
+
+
 def serve_poisson(args, cfg, model, device):
     """Continuous batching under streaming traffic (--arrivals poisson)."""
     from . import ContinuousBatchingEngine, PoissonWorkload
@@ -105,18 +150,34 @@ def serve_poisson(args, cfg, model, device):
                                vocab_size=cfg.vocab_size)
     print(f"arch={cfg.name} layers={cfg.n_layers} device={device} "
           f"scheduler={args.scheduler} workers={args.workers} "
-          f"max_batch={args.max_batch} " + workload.describe())
+          f"max_batch={args.max_batch} "
+          + (f"procs={args.procs} " if args.procs else "")
+          + workload.describe())
     max_len = args.prompt_len + args.tokens + 1
+    engine_kwargs = {}
+    if args.procs:
+        # children build the model by import reference: make_serving_fns
+        engine_kwargs = {
+            "procs": args.procs,
+            "fns_ref": ("repro_torch.serving.serve_lm:make_serving_fns",
+                        {"arch": args.arch, "prompt_len": args.prompt_len,
+                         "tokens": args.tokens, "reduced": args.reduced,
+                         "layers": args.layers, "device": str(device)}),
+        }
     with _session(args, warmup_runs=0) as session:
         engine = ContinuousBatchingEngine(
             session,
             lambda cache, tok: decode_step(model, cfg, cache, tok),
             lambda prompt: prefill(model, cfg, {"tokens": prompt},
                                    max_len=max_len),
-            max_batch=args.max_batch)
-        engine.prime()  # step graphs + keys built before traffic starts
+            max_batch=args.max_batch, **engine_kwargs)
+        if not args.procs:
+            engine.prime()  # step graphs + keys built before traffic starts
         report = engine.run(workload.requests())
-        _print_pool(args, session)
+        if args.procs:
+            _print_procs(engine.mp_stats)
+        else:
+            _print_pool(args, session)
     print(report.describe())
     _write_trace(args, cfg, report.trace, arrivals="poisson")
     s = report.summary()
@@ -212,7 +273,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="poisson workload seed (same seed, same stream)")
     ap.add_argument("--procs", type=int, default=0,
-                    help="worker processes (not ported)")
+                    help="shard the poisson stream across N worker "
+                         "processes (repro_torch.mp), each with --workers "
+                         "runtime workers; token streams stay bit-"
+                         "identical to --procs 0")
     ap.add_argument("--reduced", action="store_true",
                     help="the architecture's small smoke configuration")
     ap.add_argument("--layers", type=int, default=0,
@@ -226,14 +290,11 @@ def main(argv=None):
         ap.error("--arrivals poisson needs a task-graph scheduler")
     if args.procs and args.trace:
         ap.error("--trace is per-process; not supported with --procs")
-    if args.procs:
-        raise not_ported("procs")
+    if args.procs and args.arrivals != "poisson":
+        ap.error("--procs shards the streaming front end; add "
+                 "--arrivals poisson")
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = model_config(args.arch, args.reduced, args.layers)
     device = resolve_device(args.device)
     model = init_params(cfg, seed=0, device=device)
     if args.arrivals == "poisson":

@@ -23,6 +23,9 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,
                                      ssd_scan_ref, tile_matmul_ref)
 from repro_torch.linalg import (build_cholesky_graph, cholesky_extract,
                                 random_spd, to_tiles)
+from repro_torch.mp import ProcessPool, WorkerSpec
+from repro_torch.replay import GraphCache
+import test_torch_mp_helpers as mp_helpers
 
 pytestmark = pytest.mark.cuda
 
@@ -759,3 +762,57 @@ def test_capture_runs_while_another_thread_uses_the_card(cuda):
     assert not errors
     assert report.stats["graphs_captured_this_run"] > 0
     assert torch.equal(_factors("cholesky", store), dynamic)
+
+
+# ---------------------------------------------------------------------------
+# worker processes on the card: each child opens its own CUDA context and
+# launches the kernels there; results cross the pipe as numpy
+@pytest.mark.mp
+def test_mp_map_cholesky_on_card_equals_in_process_bit_for_bit(cuda,
+                                                               tmp_path):
+    n, b = 1920, 192
+    per_run = math.comb(n // b + 1, 3)
+    inputs = [(seed, n, b, "cuda") for seed in range(5)]
+    with repro_torch.Session(4, scheduler="replay",
+                             cache=GraphCache(tmp_path / "a")) as s:
+        local = [mp_helpers.factor_of(r.results)
+                 for r in s.map(mp_helpers.build_cholesky_on, inputs)]
+    with repro_torch.Session(4, scheduler="replay",
+                             cache=GraphCache(tmp_path / "b"), procs=2) as s:
+        pool = s.process_pool()
+        for p in (0, 1):
+            pool.submit(mp_helpers.child_launch_counts, reset=True,
+                        proc=p).result(timeout=300)
+        reports = s.map(mp_helpers.build_cholesky_on, inputs)
+        counts = [pool.submit(mp_helpers.child_launch_counts,
+                              proc=p).result(timeout=60) for p in (0, 1)]
+    assert [r.plan.mode for r in reports] == ["record"] + ["replay"] * 4
+    procs = [r.stats["mp_proc"] for r in reports[1:]]
+    assert procs == [0, 1, 0, 1]
+    for p, c in enumerate(counts):
+        assert c["tile_matmul"] == procs.count(p) * per_run
+    for r, L_local in zip(reports, local):
+        L = mp_helpers.factor_of(r.results)   # numpy from the children
+        assert np.array_equal(L.cpu().numpy() if torch.is_tensor(L) else L,
+                              L_local.cpu().numpy())
+
+
+@pytest.mark.mp
+def test_child_process_runs_each_kernel_against_its_plain_version(cuda):
+    with ProcessPool(1, WorkerSpec(workers=1)) as pool:
+        got = pool.submit(mp_helpers.kernels_against_plain,
+                          proc=0).result(timeout=600)
+    assert not mp_helpers.holds_tensor(got)
+    assert got["device"] == torch.cuda.get_device_name(0)
+    for name in ("tile_matmul", "decode_attention", "flash_attention",
+                 "ssd_scan"):
+        case = got[name]
+        assert case["launched"] == 1, name
+        assert isinstance(case["kernel"], np.ndarray), name
+        if name == "tile_matmul":
+            err = np.abs(case["kernel"] - case["plain"]).max()
+            assert err <= F64_RTOL * np.abs(case["plain"]).max()
+        else:
+            tol = SSD_TOL if name == "ssd_scan" else ATTN_TOL
+            np.testing.assert_allclose(case["kernel"], case["plain"],
+                                       **tol["float32"])

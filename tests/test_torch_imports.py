@@ -25,6 +25,8 @@ def test_port_imports_without_jax_or_reference_package():
         "import repro_torch.compile.driver, repro_torch.compile.plan\n"
         "import repro_torch.obs, repro_torch.obs.trace\n"
         "import repro_torch.obs.perfetto, repro_torch.obs.export\n"
+        "import repro_torch.mp, repro_torch.mp.pool, repro_torch.mp.worker\n"
+        "import repro_torch.mp.tasks, repro_torch.mp.futures\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

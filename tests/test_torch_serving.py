@@ -351,13 +351,6 @@ def test_report_refuses_requests_still_in_flight():
         assert eng.report().completed == 1
 
 
-def test_procs_raises_not_ported():
-    with repro_torch.Session(1) as s:
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            ContinuousBatchingEngine(s, toy_decode, toy_prefill, procs=2,
-                                     fns_ref="x:y")
-
-
 # ---------------------------------------------------------------------------
 # the reduced qwen3 LM through both packages' engines
 PROMPT_LEN, BUDGET = (8, 20), (2, 6)
