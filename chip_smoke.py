@@ -15,10 +15,17 @@ Phases, each printed as one JSON line:
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card at its main paths' shapes, each twice for the same bits (the
    float64 tile GEMM's ``C - A B^T`` and ``C - A B`` at 192^3, ragged and
-   at shallow K, and QR's tall ``V^T A`` and ``A - V Y``; the attention kernels in float32 and in bfloat16, on the
-   same inputs, at qwen3-14b's and at zamba2-7b's head dims; decode also
-   with fewer keys than splits, prefill also with needle inputs whose
-   weight sits on one masked-edge key; the SSD scan at zamba2-7b's and
+   at shallow K, and QR's tall ``V^T A`` and ``A - V Y``; the attention
+   kernels in float32 and in bfloat16, on the same inputs, at qwen3-14b's
+   and at zamba2-7b's head dims and at the MoE, VLM and enc-dec models'
+   shapes: llama-3.2-vision's cross prefill (512 queries over 1,600
+   patches) and cross decode, seamless-m4t's non-causal encoder (1,000
+   frames), cross prefill (16 over 1,000) and cross decode, qwen3-moe's
+   64/4 heads, the two decoders' causal prefill and seamless-m4t's
+   self-attention decode at head dim 64; decode also with fewer keys than splits, prefill also with
+   needle inputs whose weight sits on one masked-edge key (the last of Sk
+   too), and with every real key scored far below zero beside needles
+   stored past Sk, which must stay out; the SSD scan at zamba2-7b's and
    mamba2-2.7b's prefill, ragged, batched (each row against its scan
    alone), short, at 4,096 tokens and with a slow head's decay, with
    inputs made as an SSM layer makes them), with its time, the plain
@@ -71,8 +78,9 @@ Phases, each printed as one JSON line:
    attention block) and mamba2-2.7b (ssm).  For each, batch: four
    512-token prompts (numpy seed 1) prefilled by ``make_decode_state``
    and decoded 32 tokens each by ``build_decode_graph`` steps on
-   ``Session(2)``, then again by the plain loop, one prompt at a time;
-   the two token streams must be bit-identical, every logit finite and
+   ``Session(2)``, then again by the plain loop, one prompt at a time,
+   and the first prompt once more alone, prefill to last token; the token
+   streams must be bit-identical, every logit finite and
    the kernels' launches exact (every SSM layer's prefill launches the
    SSD scan; every attention layer, or use of the shared block, launches
    flash attention per prompt and decode attention per lane-step); for
@@ -107,7 +115,17 @@ Phases, each printed as one JSON line:
     may die or hand requests to the in-process rescue, both must serve,
     and each child's kernel launches, read from the child, must match its
     requests and lane-steps;
-11. the script's seconds so far, a ``kernels`` summary line, then the
+11. the MoE, VLM and enc-dec models: first qwen3-moe-235b-a22b's MoE
+    layer at full width in float32 (512 tokens, tokens dropped at C = 40;
+    4 tokens, the per-pair schedule) against the per-expert loop it
+    replaces; then, each freed before the next, qwen3-moe-235b-a22b at
+    full width cut to 12 of its 94 layers, llama-3.2-vision-11b (every
+    ``xgate`` set to 1.0 after the draw) and seamless-m4t-medium at full
+    width and depth: the batch path of 7 (with each request's 1,600
+    patches, or 1,000 frames of encoder input and a 16-token prompt),
+    and prompt 0 with another memory, whose logits must move; qwen3-moe also a 6-request Poisson stream as in 8;
+    each a profiled step as in 9;
+12. the script's seconds so far, a ``kernels`` summary line, then the
     device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -118,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -212,9 +231,37 @@ MP_SERVE_ARCH = "zamba2-7b"
 SERVE_DEVICE = "cuda"
 BATCH, PROMPT, TOKENS = 4, 512, 32
 POISSON = dict(rate=100.0, prompt_len=(256, 1024), max_new_tokens=(2, 8))
+#: the MoE, VLM and enc-dec models, served after the others, each freed
+#: before the next: (arch, layers (0: the published depth), decoder prompt
+#: tokens, Poisson requests (0: none; the reference serves only
+#: decoder-only families under Poisson)).  qwen3-moe-235b-a22b is cut from
+#: 94 layers to 12: each layer holds 4.98 GB (the 128 experts 4.83 GB),
+#: and 12 layers with the untied embedding and unembedding (2.49 GB) take
+#: ~62 GB, which leaves room for the caches and a prefill on an 80 GB
+#: card, where 14 (72 GB) would not.  seamless-m4t-medium's decoder prompt
+#: is 16 tokens beside 1,000 encoder frames
+NEW_SERVE = (("qwen3-moe-235b-a22b", 12, PROMPT, 6),
+             ("llama-3.2-vision-11b", 0, PROMPT, 0),
+             ("seamless-m4t-medium", 0, 16, 0))
+#: free device memory qwen3-moe's 12 layers need (~62 GB of weights, the
+#: float32 draw of one expert stack, caches and a prefill's activations)
+MOE_FREE_BYTES = 66e9
+#: every vlm ``xgate`` after the seeded draw, which leaves it at 0:
+#: tanh(1.0) = 0.76 of each cross layer's output reaches the residual
+XGATE = 1.0
+#: the encoder input's frames per request on the card, passed to
+#: ``serve_lm.memory_inputs``: a ragged length, not a multiple of the
+#: 64-key tile, so the masking of the last key tile runs on the served path
+#: (serve_lm's own default is the reference's 32)
+CARD_ENC_FRAMES = 1000
+#: when the script began: every phase's row carries its seconds since then
+#: (``t_s``), so a phase's time is the difference of two rows
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -553,6 +600,28 @@ def needle_arrays(rng, B, H, KV, S, d, offset):
     return [q, k, v]
 
 
+def cross_needle_arrays(rng, B, H, KV, Sq, Sk, d, where):
+    """Full-attention inputs of Sq queries over Sk keys, every query of a
+    KV group the same standard-normal row u.  ``"last"``: key Sk - 1 is 2 u
+    and carries nearly all the weight, so a kernel that drops the ragged
+    tile's last key is off by about |v|.  ``"past"``: every key scores far
+    below zero (k = -u plus noise, a score near -sqrt(d)), so a key past Sk
+    that the mask let in, at the zero score of TMA's fill, would outweigh
+    them all.  Returns q, k, v with k and v ``Sk + 64`` rows long; the
+    case passes their first Sk rows (views), and rows past Sk hold 2 u, so
+    a map that ran past Sk would find needles there too."""
+    u = rng.standard_normal((B, KV, 1, d))
+    q = np.repeat(np.repeat(u, H // KV, axis=1), Sq, axis=2)
+    if where == "last":
+        k = rng.standard_normal((B, KV, Sk + 64, d))
+        k[:, :, Sk - 1] = 2.0 * u[:, :, 0]
+    else:
+        k = -u + 0.1 * rng.standard_normal((B, KV, Sk + 64, d))
+    k[:, :, Sk:] = 2.0 * u
+    v = rng.standard_normal((B, KV, Sk + 64, d))
+    return [q, k, v]
+
+
 def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
     """One decode-attention shape: compare, then time kernel / plain /
     ``scaled_dot_product_attention`` over the same valid keys, each with
@@ -601,58 +670,82 @@ def decode_case(name, S, length, window, *, seed, B=1, H=40, KV=8, d=128):
 
 
 def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128,
-               needle=None, timed=True):
-    """One causal prefill-attention shape: compare (bfloat16 at the derived
+               needle=None, timed=True, Sk=None, causal=True,
+               time_float32=False):
+    """One prefill-attention shape, ``S`` queries over ``Sk`` keys (default
+    ``S``; unequal lengths only with ``causal=False``, the encoder's and
+    cross-attention's full attention): compare (bfloat16 at the derived
     limit), then, if ``timed``, time kernel / plain /
-    ``scaled_dot_product_attention``.  ``needle=offset`` draws
-    :func:`needle_arrays` instead of plain normal inputs."""
+    ``scaled_dot_product_attention`` in bfloat16 and, with
+    ``time_float32``, in float32 too.  ``needle=offset`` draws
+    :func:`needle_arrays` (causal, ``Sk == S``); ``"last"`` or ``"past"``
+    draws :func:`cross_needle_arrays`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
+    Sk = S if Sk is None else Sk
     rng = np.random.default_rng(seed)
     if needle is None:
         arrays = [rng.standard_normal(s) for s in
-                  ((B, H, S, d), (B, KV, S, d), (B, KV, S, d))]
+                  ((B, H, S, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+    elif needle in ("last", "past"):
+        arrays = cross_needle_arrays(rng, B, H, KV, S, Sk, d, needle)
     else:
         arrays = needle_arrays(rng, B, H, KV, S, d, needle)
+
+    def cut(q, k, v):                   # needles past Sk stay out of view
+        return q, k[:, :, :Sk], v[:, :, :Sk]
+
     (q, k, v), _, errors = _compare(
-        name, lambda q, k, v: flash_attention(q, k, v, causal=True,
-                                              window=window),
-        lambda q, k, v: flash_attention_ref(q, k, v, causal=True,
-                                            window=window), arrays,
-        slack=flash_slack(True, window))
+        name, lambda *x: flash_attention(*cut(*x), causal=causal,
+                                         window=window),
+        lambda *x: flash_attention_ref(*cut(*x), causal=causal,
+                                       window=window), arrays,
+        slack=lambda *x: flash_slack(causal, window)(*cut(*x)))
+    q, k, v = cut(q, k, v)
+    shape = {"phase": "kernel", "case": name, "kernel": "flash_attention",
+             "B": B, "H": H, "KV": KV, "Sq": S, "Sk": Sk, "d": d,
+             "causal": causal, "window": window}
     if not timed:
-        row = {"phase": "kernel", "case": name, "kernel": "flash_attention",
-               "B": B, "H": H, "KV": KV, "S": S, "d": d, "window": window,
-               "needle_offset": needle, "errors": errors}
+        row = {**shape, "needle": needle, "errors": errors}
         emit(row)
         return row
-    pos = torch.arange(S, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
+    qpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
     if window > 0:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= qpos[:, None] - kpos[None, :] < window
     pairs = int(mask.sum().item())      # the (query, key) pairs computed
-    if window > 0:
-        lib = lambda: F.scaled_dot_product_attention(             # noqa: E731
-            q, k, v, attn_mask=mask, enable_gqa=True)
-    else:
-        lib = lambda: F.scaled_dot_product_attention(             # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True)
-    # q, k, v read and out written once; QK and PV, 2 flops a term each
-    bound_ms, bound_by = _bound(2 * B * S * d * (2 * H + 2 * KV),
-                                4.0 * B * H * d * pairs)
-    row = {"phase": "kernel", "case": name, "kernel": "flash_attention",
-           "dtype": "bfloat16", "B": B, "H": H, "KV": KV, "S": S, "d": d,
-           "causal": True, "window": window, "p_round": FLASH_P_ROUND,
+
+    def times(q, k, v):
+        """kernel, plain, library and bound for these inputs' type."""
+        if window > 0:
+            lib = lambda: F.scaled_dot_product_attention(         # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(         # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True)
+        item = q.element_size()
+        # q, k, v read and out written once; QK and PV, 2 flops a term each
+        bound_ms, bound_by = _bound(
+            item * B * d * (2 * H * S + 2 * KV * Sk),
+            4.0 * B * H * d * pairs, q.dtype)
+        return {"ms": device_ms(lambda: flash_attention(
+                    q, k, v, causal=causal, window=window), reps=20),
+                "plain_ms": device_ms(lambda: flash_attention_ref(
+                    q, k, v, causal=causal, window=window), reps=20),
+                "library_ms": device_ms(lib, reps=20), "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    row = {**shape, "dtype": "bfloat16", "p_round": FLASH_P_ROUND,
            "max_abs_err": errors["bfloat16"]["max_abs_err"], "errors": errors,
-           "ms": device_ms(lambda: flash_attention(q, k, v, causal=True,
-                                                   window=window), reps=20),
-           "plain_ms": device_ms(lambda: flash_attention_ref(
-               q, k, v, causal=True, window=window), reps=20),
-           "library_ms": device_ms(lib, reps=20), "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           **times(q, k, v)}
+    if time_float32:
+        row["float32"] = times(q.float(), k.float(), v.float())
     emit(row)
     return row
 
@@ -770,9 +863,11 @@ def _device_rows(prof):
     return rows
 
 
-def serving_model(arch: str):
-    """``arch`` at full width and depth in bfloat16, drawn on the card;
-    returns (cfg, model, the bytes a B = 1 decode lane-step must read and
+def serving_model(arch: str, layers: int = 0):
+    """``arch`` at full width in bfloat16, drawn on the card, at full depth
+    or cut to ``layers``; a vlm's every ``xgate`` set to ``XGATE`` after
+    the draw (a fresh model's 0 would switch every cross layer off).
+    Returns (cfg, model, the bytes a B = 1 decode lane-step must read and
     write at least)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -780,23 +875,56 @@ def serving_model(arch: str):
     from repro_torch.models.ssm import ssm_state_spec
 
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     torch.cuda.reset_peak_memory_stats()
+    free_before = torch.cuda.mem_get_info()[0]
+    if cfg.family == "moe":
+        # the weights alone take ~62 GB at 12 layers: stop with the numbers
+        # rather than cut the depth further without saying so
+        check(free_before >= MOE_FREE_BYTES,
+              f"{cfg.name} at {cfg.n_layers} layers needs "
+              f"{MOE_FREE_BYTES / 1e9:.0f} GB free, the card has "
+              f"{free_before / 1e9:.1f} GB")
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=SERVE_DEVICE)
+    xgate = None
+    if cfg.family == "vlm":
+        xgate = XGATE
+        with torch.no_grad():
+            for blk in model.blocks:
+                blk.xgate.fill_(XGATE)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     # a decode lane-step reads every weight once, the shared block once per
-    # layer that runs it (it does not fit the 50 MB L2), and one row of the
-    # embedding table unless the table is also the unembedding
-    uses = sum(layer_flags(cfg).get("use_attn", []))
+    # layer that runs it (it does not fit the 50 MB L2), one row of the
+    # embedding table unless the table is also the unembedding, of each
+    # MoE layer's experts only the top_k routed ones, of a vlm's cross
+    # weights only the layers that cross-attend, none of the encoder's, and
+    # the memory once
+    flags = layer_flags(cfg)
+    uses = sum(flags.get("use_attn", []))
+    cross = flags.get("use_cross", [])
     read = 0
     for name, p in model.named_parameters():
         size = p.numel() * p.element_size()
+        parts = name.split(".")
         if name == "embed.table" and not cfg.tie_embeddings:
             size = cfg.d_model * p.element_size()
-        elif name.startswith("shared."):
+        elif parts[0] == "shared":
             size *= uses
+        elif parts[0] == "enc_blocks":
+            size = 0
+        elif parts[0] == "blocks" and parts[2] in ("lnx", "xattn", "xgate") \
+                and cross and not cross[int(parts[1])]:
+            size = 0
+        elif parts[0] == "blocks" and parts[2] == "moe" \
+                and parts[3] in ("wg", "wu", "wd"):
+            size = size * cfg.top_k // cfg.n_experts
         read += size
+    memory_rows = {"vlm": cfg.n_patches, "encdec": CARD_ENC_FRAMES}.get(
+        cfg.family, 0)
+    read += memory_rows * cfg.d_model * 2
     # and reads and writes every layer's SSM and conv states
     state = 0
     if cfg.family in ("ssm", "hybrid"):
@@ -805,16 +933,24 @@ def serving_model(arch: str):
             for shape, dt in ssm_state_spec(cfg, 1, cfg.torch_dtype).values())
     floor_bytes = read + 2 * state
     emit({"phase": "serving_model", "arch": cfg.name, "family": cfg.family,
-          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "layers": cfg.n_layers, "published_layers":
+              get_config(arch).n_layers, "d_model": cfg.d_model,
           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "experts": cfg.n_experts, "top_k": cfg.top_k,
+          "d_expert": cfg.d_expert, "enc_layers": cfg.enc_layers,
+          "cross_layers": (cfg.n_layers if cfg.family == "encdec"
+                           else sum(cross)),
+          "memory_rows": memory_rows, "xgate": xgate,
           "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
           "ssm_chunk": cfg.ssm_chunk if cfg.ssm_state else None,
           "shared_block_uses": uses, "vocab": cfg.vocab_size,
           "dtype": cfg.dtype, "params": n_params,
+          "param_bytes": n_params * 2,
           "weight_bytes_read_per_lane_step": read,
           "state_bytes_per_lane": state,
           "floor_ms_per_lane_step": floor_bytes / HBM_BYTES_PER_S * 1e3,
+          "free_gb_before_init": free_before / 1e9,
           "init_s": time.perf_counter() - t0,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return cfg, model, floor_bytes
@@ -824,48 +960,80 @@ def expected_launches(cfg, prefills: int, lane_steps: int):
     """Each kernel's launches for ``prefills`` prompts and ``lane_steps``
     decode lane-steps: every attention layer (a hybrid: every use of the
     shared block) launches flash attention per prompt and decode attention
-    per lane-step; every SSM layer launches the SSD scan per prompt."""
+    per lane-step, and so does every cross-attending layer (encdec: all,
+    vlm: those of ``use_cross``); every encoder layer launches flash
+    attention per prompt; every SSM layer launches the SSD scan per
+    prompt."""
     from repro_torch.models.lm import layer_flags
 
-    if cfg.family == "dense":
-        attn, ssm = cfg.n_layers, 0
+    flags = layer_flags(cfg)
+    fam = cfg.family
+    if fam in ("ssm", "hybrid"):
+        attn, ssm = sum(flags.get("use_attn", [])), cfg.n_layers
     else:
-        attn, ssm = sum(layer_flags(cfg).get("use_attn", [])), cfg.n_layers
-    return {"tile_matmul": 0, "flash_attention": attn * prefills,
-            "decode_attention": attn * lane_steps,
+        attn, ssm = cfg.n_layers, 0
+    cross = {"encdec": cfg.n_layers,
+             "vlm": sum(flags.get("use_cross", []))}.get(fam, 0)
+    enc = cfg.enc_layers if fam == "encdec" else 0
+    return {"tile_matmul": 0,
+            "flash_attention": (attn + cross + enc) * prefills,
+            "decode_attention": (attn + cross) * lane_steps,
             "ssd_scan": ssm * prefills}
 
 
-def serving_batch_phase(cfg, model, floor_bytes, smi):
+def memory_batch(cfg, n: int, seed: int = 2) -> dict:
+    """A cross-attending family's memory input for ``n`` requests on the
+    card (``serve_lm.memory_inputs``: numpy ``seed``), at ``CARD_ENC_FRAMES``
+    encoder frames; empty for the others."""
+    from repro_torch.serving.serve_lm import memory_inputs
+
+    return memory_inputs(cfg, n, SERVE_DEVICE, frames=CARD_ENC_FRAMES,
+                         seed=seed)
+
+
+def serving_batch_phase(cfg, model, floor_bytes, smi, prompt_len=PROMPT):
     """The fixed batch through the decode-step graphs, then through the
-    plain loop; returns (the graph run's row, its decode state)."""
+    plain loop, then the first request once more by itself, prefill to
+    last token; the three must give the same tokens.  Returns (the graph
+    run's row, its decode state).  A cross-attending family's batch
+    carries its memory (:func:`memory_batch`), and then the same first
+    prompt with another memory (numpy seed 3) must give other prefill
+    logits."""
     from repro_torch import Session
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import (build_decode_graph, decode_step,
                                     greedy_sample, make_decode_state,
                                     prefill)
 
-    max_len = PROMPT + TOKENS + 1
+    max_len = prompt_len + TOKENS + 1
     steps = TOKENS - 1
     prompts = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32),
+        0, cfg.vocab_size, (BATCH, prompt_len), dtype=np.int32),
         device=SERVE_DEVICE)
+    memory = memory_batch(cfg, BATCH)
+    batch = {"tokens": prompts, **memory}
 
     def dec(p, c, t):
         return decode_step(p, cfg, c, t)
 
+    def lane(b, n=None):
+        """request b's inputs, its prompt cut to n tokens"""
+        return {k: (v[b:b + 1, :n] if k == "tokens" else v[b:b + 1])
+                for k, v in batch.items()}
+
     with Session(SERVE_WORKERS) as session:
         # warm-up outside the counted run: cuBLAS handles on every thread
-        warm = make_decode_state(model, cfg, {"tokens": prompts[:, :16]},
-                                 n_shards=BATCH, max_len=20,
-                                 device=SERVE_DEVICE)
+        warm = make_decode_state(
+            model, cfg, {k: (v[:, :16] if k == "tokens" else v)
+                         for k, v in batch.items()},
+            n_shards=BATCH, max_len=20, device=SERVE_DEVICE)
         session.run(build_decode_graph(warm, dec))
         del warm
         torch.cuda.synchronize()
 
         reset_launch_counts()
         t0 = time.perf_counter()
-        state = make_decode_state(model, cfg, {"tokens": prompts},
+        state = make_decode_state(model, cfg, batch,
                                   n_shards=BATCH, max_len=max_len,
                                   device=SERVE_DEVICE)
         prefill_enqueue_s = time.perf_counter() - t0
@@ -893,33 +1061,53 @@ def serving_batch_phase(cfg, model, floor_bytes, smi):
     t0 = time.perf_counter()
     lanes = []
     for b in range(BATCH):
-        cache, logits = prefill(model, cfg, {"tokens": prompts[b:b + 1]},
-                                max_len=max_len)
+        cache, logits = prefill(model, cfg, lane(b), max_len=max_len)
         finite &= torch.isfinite(logits).all()
-        lanes.append([cache, [greedy_sample(logits)]])
+        lanes.append([cache, [greedy_sample(logits)], logits])
     torch.cuda.synchronize()
     loop_prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(steps):
-        for lane in lanes:
-            lane[0], logits = decode_step(model, cfg, lane[0], lane[1][-1])
+        for ln in lanes:
+            ln[0], logits = decode_step(model, cfg, ln[0], ln[1][-1])
             finite &= torch.isfinite(logits).all()
-            lane[1].append(greedy_sample(logits))
+            ln[1].append(greedy_sample(logits))
     loop_enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     loop_decode_s = time.perf_counter() - t0
     loop_launches = launch_counts()
-    loop_tokens = torch.cat([torch.cat(toks, dim=1) for _, toks in lanes])
+    loop_tokens = torch.cat([torch.cat(toks, dim=1) for _, toks, _ in lanes])
+    first_logits = lanes[0][2]
     del lanes
+
+    checks = {}
+    if memory:
+        # the cross path moves the logits: prompt 0 with another memory
+        other = {"tokens": prompts[:1], **{
+            k: v[:1] for k, v in memory_batch(cfg, 1, seed=3).items()}}
+        _, moved = prefill(model, cfg, other, max_len=max_len)
+        checks["memory_moves_logits_max_abs"] = (
+            moved.float() - first_logits.float()).abs().max().item()
+    t0 = time.perf_counter()
+    cache, logits = prefill(model, cfg, lane(0), max_len=max_len)
+    toks = [greedy_sample(logits)]
+    for _ in range(steps):
+        cache, logits = decode_step(model, cfg, cache, toks[-1])
+        toks.append(greedy_sample(logits))
+    checks["request_0_alone_identical"] = bool(torch.equal(
+        torch.cat(toks, dim=1), graph_tokens[:1]))
+    checks["request_0_alone_s"] = time.perf_counter() - t0
+    del cache
 
     lane_steps = BATCH * steps
     row = {"phase": "serving_batch", "arch": cfg.name, "layers": cfg.n_layers,
-           "dtype": cfg.dtype, "batch": BATCH, "prompt": PROMPT,
+           "dtype": cfg.dtype, "batch": BATCH, "prompt": prompt_len,
+           "memory": {k: list(v.shape) for k, v in memory.items()},
            "tokens": TOKENS, "max_len": max_len, "n_shards": BATCH,
            "workers": SERVE_WORKERS,
            "prefill_enqueue_s": prefill_enqueue_s,
            "prefill_wall_s": prefill_wall_s,
-           "prefill_tok_s": BATCH * PROMPT / prefill_wall_s,
+           "prefill_tok_s": BATCH * prompt_len / prefill_wall_s,
            "decode_steps": steps, "decode_enqueue_s": decode_enqueue_s,
            "decode_wall_s": decode_wall_s,
            "decode_tok_s": lane_steps / decode_wall_s,
@@ -937,7 +1125,8 @@ def serving_batch_phase(cfg, model, floor_bytes, smi):
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tokens_bit_identical": bool(torch.equal(graph_tokens,
                                                     loop_tokens)),
-           "sample_tokens": graph_tokens[0, :8].tolist(), "card": smi}
+           "sample_tokens": graph_tokens[0, :8].tolist(), **checks,
+           "card": smi}
     emit(row)
     want = expected_launches(cfg, BATCH, 0)
     check(prefill_launches == want,
@@ -954,6 +1143,11 @@ def serving_batch_phase(cfg, model, floor_bytes, smi):
     check(row["tokens_bit_identical"],
           "the graph's and the plain loop's tokens differ")
     check(graph_finite and bool(finite), "a logit is not finite")
+    if memory:
+        check(checks["memory_moves_logits_max_abs"] > 0,
+              f"{cfg.name}: another memory left prompt 0's logits unchanged")
+    check(checks["request_0_alone_identical"],
+          f"{cfg.name}: request 0 served alone gave other tokens")
     return row, state
 
 
@@ -1014,12 +1208,13 @@ def serving_poisson_phase(cfg, model, n_requests: int, smi):
     return row, batched.tokens_by_rid()
 
 
-def serving_profile_phase(cfg, model, state, floor_bytes, smi) -> None:
+def serving_profile_phase(cfg, model, state, floor_bytes, smi,
+                          prompt_len=PROMPT) -> None:
     """One more 4-lane decode step of the batch path under
     ``torch.profiler``: device time by kernel, kernels per lane-step, the
     device's busy share and the distance from the floor; then one
-    ``PROMPT``-token prefill of one prompt: device time per prompt by
-    kernel."""
+    ``prompt_len``-token prefill of one prompt (with its memory, for a
+    cross-attending family): device time per prompt by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import Session
@@ -1043,12 +1238,14 @@ def serving_profile_phase(cfg, model, state, floor_bytes, smi) -> None:
     floor_s = state.n_shards * floor_bytes / HBM_BYTES_PER_S
 
     prompt = torch.as_tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, PROMPT), dtype=np.int32), device=SERVE_DEVICE)
+        0, cfg.vocab_size, (1, prompt_len), dtype=np.int32),
+        device=SERVE_DEVICE)
+    one = {"tokens": prompt, **memory_batch(cfg, 1)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill(model, cfg, {"tokens": prompt}, max_len=PROMPT + 1)
+        prefill(model, cfg, one, max_len=prompt_len + 1)
         torch.cuda.synchronize()
         prefill_wall_s = time.perf_counter() - t0
     prefill_rows = _device_rows(prof)
@@ -1066,11 +1263,67 @@ def serving_profile_phase(cfg, model, state, floor_bytes, smi) -> None:
           "device_over_floor": device_s / floor_s,
           "top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
                   for us, k, c in rows[:12]],
-          "prefill_tokens": PROMPT, "prefill_wall_s": prefill_wall_s,
+          "prefill_tokens": prompt_len, "prefill_wall_s": prefill_wall_s,
           "prefill_device_ms": prefill_device_s * 1e3,
           "prefill_device_busy_share": prefill_device_s / prefill_wall_s,
           "prefill_top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
                           for us, k, c in prefill_rows[:8]], "card": smi})
+
+
+def moe_check_phase(smi) -> dict:
+    """qwen3-moe-235b-a22b's MoE layer at full width (d_model 4,096, 128
+    experts of 1,536, top-8) in float32 on the card, its weights drawn from
+    a seeded generator at 1/sqrt(fan-in): 512 tokens (C = 40, tokens
+    dropped) through the capacity schedule and 4 tokens (a decode step's
+    32 routed pairs) through the per-pair one, each against
+    ``moe_loop_ref``, the reference's loop over every expert, at the model
+    tests' rtol = atol = 1e-4 (the same float32 products summed in other
+    orders), and twice for the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mod = L.MoE(cfg, dtype=torch.float32, device=torch.device("cuda"))
+    with torch.no_grad():
+        for name in ("router", "wg", "wu", "wd"):
+            w = getattr(mod, name)
+            w.normal_(generator=gen).mul_(w.shape[-2] ** -0.5)
+        row = {"phase": "moe_check", "arch": cfg.name, "dtype": "float32",
+               "d_model": cfg.d_model, "experts": cfg.n_experts,
+               "top_k": cfg.top_k, "d_expert": cfg.d_expert, "card": smi}
+        for T in (PROMPT, 4):
+            x = torch.randn((T, cfg.d_model), generator=gen, device="cuda")
+            wts, ids = L.moe_route(x, mod.router, cfg.top_k)
+            C = L.moe_capacity(T, cfg)
+            counts = torch.bincount(ids.flatten(), minlength=cfg.n_experts)
+            want = L.moe_loop_ref(x, wts, ids, mod.wg, mod.wu, mod.wd, C)
+            got = mod.combine(x, wts, ids, C)
+            again = mod.combine(x, wts, ids, C)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            share = (diff / (1e-4 + 1e-4 * want.abs())).max().item()
+            case = {"tokens": T, "capacity": C,
+                    "schedule": ("per_pair" if T * cfg.top_k < cfg.n_experts
+                                 else "capacity"),
+                    "experts_used": int((counts > 0).sum().item()),
+                    "max_routed": int(counts.max().item()),
+                    "dropped_pairs": int((counts - C).clamp_min(0).sum()
+                                         .item()),
+                    "max_abs_err": diff.max().item(), "tol_share": share,
+                    "ms": device_ms(lambda: mod.combine(x, wts, ids, C),
+                                    reps=5),
+                    "loop_ms": device_ms(lambda: L.moe_loop_ref(
+                        x, wts, ids, mod.wg, mod.wu, mod.wd, C), reps=3)}
+            row[f"T{T}"] = case
+            check(share <= 1.0, f"MoE T={T}: batched vs the per-expert loop, "
+                  f"max abs err {case['max_abs_err']}")
+            check(torch.equal(got, again), f"MoE T={T}: two runs differ")
+    emit(row)
+    check(row[f"T{PROMPT}"]["dropped_pairs"] > 0,
+          f"MoE T={PROMPT}: no expert was routed more than C tokens")
+    return row
 
 
 def factor(session, a, tile: int):
@@ -2065,6 +2318,49 @@ def main() -> int:
                PROMPT, 64, seed=19, needle=63, timed=False)
     flash_case("prefill S=500 needle on the diagonal and the ragged last key",
                500, 0, seed=20, needle=0, timed=False)
+    # the MoE, VLM and enc-dec models' attention: llama-3.2-vision's cross
+    # prefill (512 prompt tokens over 1,600 patches) and cross decode,
+    # seamless-m4t's encoder (1,000 frames, non-causal), cross prefill (a
+    # 16-token prompt over them) and cross decode, qwen3-moe's prefill and
+    # decode with 16 query heads per KV head; each timed in bfloat16 and the
+    # flash shapes in float32 too
+    flash_case(f"prefill cross llama-vision Sq={PROMPT} Sk=1600", PROMPT, 0,
+               seed=30, H=32, KV=8, Sk=1600, causal=False, time_float32=True)
+    flash_case("encoder seamless S=1000 non-causal", 1000, 0, seed=31, H=16,
+               KV=16, d=64, causal=False, time_float32=True)
+    flash_case("prefill cross seamless Sq=16 Sk=1000", 16, 0, seed=32, H=16,
+               KV=16, d=64, Sk=1000, causal=False, time_float32=True)
+    flash_case(f"prefill qwen3-moe S={PROMPT} causal (64/4 heads)", PROMPT, 0,
+               seed=33, H=64, KV=4, time_float32=True)
+    # the decoders' causal self-attention prefill: llama-3.2-vision's
+    # (32/8 heads) and seamless-m4t's 16-token prompt, the one causal use of
+    # the head-dim-64 template on a served path
+    flash_case(f"prefill llama-vision S={PROMPT} causal (32/8 heads)", PROMPT,
+               0, seed=41, H=32, KV=8)
+    flash_case("prefill seamless decoder S=16 causal d=64", 16, 0, seed=42,
+               H=16, KV=16, d=64)
+    # needles: the weight on key Sk - 1; every real key far below zero with
+    # needles stored past Sk, which must stay out of the sum
+    flash_case(f"cross Sq={PROMPT} Sk=1600 needle on the last key", PROMPT, 0,
+               seed=34, H=32, KV=8, Sk=1600, causal=False, needle="last",
+               timed=False)
+    flash_case("encoder S=1000 needle on the ragged last key", 1000, 0,
+               seed=35, H=16, KV=16, d=64, causal=False, needle="last",
+               timed=False)
+    flash_case("cross Sq=16 Sk=1000 keys past Sk ignored", 16, 0, seed=36,
+               H=16, KV=16, d=64, Sk=1000, causal=False, needle="past",
+               timed=False)
+    flash_case("encoder S=1000 keys past Sk ignored", 1000, 0, seed=37,
+               H=16, KV=16, d=64, causal=False, needle="past", timed=False)
+    decode_case("decode cross llama-vision length=1600", 1600, 1600, 0,
+                seed=38, H=32, KV=8)
+    decode_case(f"decode qwen3-moe group of 16 S={max_len}", max_len,
+                max_len, 0, seed=39, H=64, KV=4)
+    decode_case("decode cross seamless length=1000 d=64", 1000, 1000, 0,
+                seed=40, H=16, KV=16, d=64)
+    # seamless-m4t's self-attention decode: its 16 + 32 + 1-token cache
+    decode_case("decode seamless S=49 length=48 d=64", 49, 48, 0, seed=43,
+                H=16, KV=16, d=64)
     # zamba2-7b's shared attention block: MHA, head dim 112
     decode_case(f"decode zamba2 d=112 S={max_len} length={max_len}",
                 max_len, max_len, 0, seed=10, H=32, KV=32, d=112)
@@ -2148,6 +2444,23 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # the MoE layer against its per-expert loop at full width, then the
+    # MoE, VLM and enc-dec models
+    moe_check_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, layers, prompt_len, n_poisson in NEW_SERVE:
+        cfg, model, floor_bytes = serving_model(arch, layers)
+        batch_rows[arch], state = serving_batch_phase(
+            cfg, model, floor_bytes, smi, prompt_len=prompt_len)
+        if n_poisson:
+            serving_poisson_phase(cfg, model, n_poisson, smi)
+        serving_profile_phase(cfg, model, state, floor_bytes, smi,
+                              prompt_len=prompt_len)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
     def line(name, case, launches):
         return {"name": name, "route": "cuda",
                 "source": f"{CSRC}/{name}.cu", "replaces": REPLACES[name],
@@ -2168,17 +2481,23 @@ def main() -> int:
     gemm = line("tile_matmul", main_case, sum(by_path.values()))
     gemm["launches_by_path"] = by_path
     qwen = batch_rows["qwen3-14b"]
+    # the MoE, VLM and enc-dec models' batch paths, each counted alone
+    new_paths = {f"serving_{arch}": batch_rows[arch]
+                 for arch, _, _, _ in NEW_SERVE}
     decode_by_path = {
         "serving": qwen["decode_attention_launches"],
         "serving_compiled": qwen["compiled_decode_attention_launches"],
-        "serving_mp": serving_mp["decode_attention"]}
+        "serving_mp": serving_mp["decode_attention"],
+        **{k: r["decode_attention_launches"] for k, r in new_paths.items()}}
     decode = line("decode_attention", decode_main,
                   sum(decode_by_path.values()))
     decode["launches_by_path"] = decode_by_path
     # the sharded serve (zamba2-7b) in the children, beside each kernel's
     # single-process serving path
     flash_by_path = {"serving": qwen["flash_attention_launches"],
-                     "serving_mp": serving_mp["flash_attention"]}
+                     "serving_mp": serving_mp["flash_attention"],
+                     **{k: r["flash_attention_launches"]
+                        for k, r in new_paths.items()}}
     flash = line("flash_attention", flash_main, sum(flash_by_path.values()))
     flash["launches_by_path"] = flash_by_path
     scan_by_path = {"serving": batch_rows["zamba2-7b"]["ssd_scan_launches"],

@@ -12,10 +12,13 @@ raised.  It prints one JSON line per fault: for each case the largest share
 of the limit that the error used (above 1.0 fails) and how many checks
 failed.  The faults:
 
-* ``flash_attention`` (prefill; normal and needle inputs, float32 and
-  bfloat16): drop the causal diagonal key; drop the sliding window's oldest
-  key; drop the ragged last key; skip the rescale of the output carry on
-  the second key tile.  Each is written into both of the file's kernels.
+* ``flash_attention`` (prefill, encoder and cross-attention shapes; normal
+  and needle inputs, float32 and bfloat16): drop the causal diagonal key;
+  drop the sliding window's oldest key; drop the ragged last key; skip the
+  rescale of the output carry on the second key tile; let the keys past
+  Sk (the zero fill of the ragged last key tile) into the softmax; apply
+  the causal mask when ``causal`` is false.  Each is written into both of
+  the file's kernels.
 * ``tile_matmul`` (float64, ``C - A B^T`` and ``C - A B``): drop the last
   K split from the cluster's sum; drop the last K slice of every split.
 * ``ssd_scan`` (float32 and bfloat16): skip the carried-state term
@@ -46,13 +49,16 @@ FAULTS = {
         "drop the diagonal key": [("kpos <= qpos", "kpos < qpos")],
         "drop the window's oldest key": [("qpos - kpos < window)",
                                           "qpos - kpos < window - 1)")],
-        "drop the ragged last key": [("kpos < S &&", "kpos < S - 1 &&")],
+        "drop the ragged last key": [("kpos < Sk &&", "kpos < Sk - 1 &&")],
         "skip one tile's rescale": [
             ("o[x] *= corr[(x >> 1) & 1];",
              "if (t != 1) o[x] *= corr[(x >> 1) & 1];"),
             ("for (int j = 0; j < DCH; ++j) o[i][j] *= corr;",
              "for (int j = 0; j < DCH; ++j) if (k0 != kv_begin + kBK) "
              "o[i][j] *= corr;")],
+        "let keys past Sk in": [("kpos < Sk &&", "kpos < Sk + kBK &&")],
+        "causal mask when causal is false": [("(!causal || kpos <= qpos)",
+                                              "(kpos <= qpos)")],
     },
     "tile_matmul": {
         "none": [],
@@ -76,7 +82,8 @@ FAULTS = {
     },
 }
 
-#: prefill cases: (case, S, window, needle offset or None, keyword arguments)
+#: prefill cases: (case, S, window, needle (an offset, "last", "past" or
+#: None), keyword arguments)
 FLASH_CASES = [
     ("S=512 causal", 512, 0, None, {}),
     ("S=500 causal (ragged)", 500, 0, None, {}),
@@ -86,6 +93,18 @@ FLASH_CASES = [
     ("S=500 needle on the diagonal and the ragged last key", 500, 0, 0, {}),
     ("zamba2 d=112 S=512 causal", 512, 0, None,
      dict(H=32, KV=32, d=112)),
+    ("cross Sq=512 Sk=1600", 512, 0, None,
+     dict(H=32, KV=8, Sk=1600, causal=False)),
+    ("encoder S=1000 non-causal", 1000, 0, None,
+     dict(H=16, KV=16, d=64, causal=False)),
+    ("encoder S=1000 needle on the ragged last key", 1000, 0, "last",
+     dict(H=16, KV=16, d=64, causal=False)),
+    ("cross Sq=16 Sk=1000 needle on the ragged last key", 16, 0, "last",
+     dict(H=16, KV=16, d=64, Sk=1000, causal=False)),
+    ("cross Sq=16 Sk=1000 keys past Sk ignored", 16, 0, "past",
+     dict(H=16, KV=16, d=64, Sk=1000, causal=False)),
+    ("encoder S=1000 keys past Sk ignored", 1000, 0, "past",
+     dict(H=16, KV=16, d=64, causal=False)),
 ]
 #: float64 GEMM cases: (M, N, K, mode)
 GEMM_CASES = [(192, 192, 192, "sub_t"), (192, 192, 192, "sub_nn"),

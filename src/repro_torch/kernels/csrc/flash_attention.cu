@@ -1,42 +1,54 @@
-// Forward flash attention for Hopper (sm_90a), causal and sliding-window,
+// Forward flash attention for Hopper (sm_90a): causal and sliding-window
+// self-attention, and full attention over another sequence (the encoder's
+// self-attention, cross-attention),
 //
 //     out[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, g, j] / sqrt(d)) v[b, g, j]
 //
-// over the keys j with j <= i (causal) and i - j < window (window > 0),
+// over the keys j < Sk with j <= i (causal) and i - j < window (window > 0),
 // where g = h / (H / KV) is the query head's KV head (grouped-query
 // attention read in place, the mapping of jnp.repeat in the reference).
-// q and out are (B, H, S, d), k and v (B, KV, S, d), each read or written
+// q and out are (B, H, Sq, d), k and v (B, KV, Sk, d), each read or written
 // through its (b, head, position) strides with the innermost dimension
 // contiguous, so a transposed view of the projections is taken without a
-// copy.
+// copy.  The two lengths differ only without the causal mask (the wrapper
+// refuses the rest): query tiles run over Sq, the key loop over Sk, and
+// `kpos < Sk` masks the ragged last key tile.
 //
 // Replaces: repro/kernels/flash_attention.py::flash_attention (the Pallas
 // kernel `_flash_kernel`), which keeps a bq = 128 query block in VMEM and
 // sweeps bk = 128 key blocks along the grid's sequential minor axis with an
 // (m, l, acc) online softmax in f32 scratch, and needs S % 128 == 0.  It
-// also takes the body of the reference's layers._chunked_attn as prefill
-// calls it (q_offset = 0, Sq = Sk), which adds GQA and pads a ragged S:
-// here any S is taken and the ragged edge is masked inside the kernel.
+// also takes the body of the reference's layers._chunked_attn as prefill,
+// the encoder and cross-attention call it (q_offset = 0; Sq = Sk, or
+// causal = False), which adds GQA and pads ragged lengths: here any Sq and
+// Sk are taken and the ragged edges are masked inside the kernel.
 //
 // What bounds it on an H100: causal prefill does 2 * S^2 * d * H flops (half
 // the square, QK and PV) and moves 2 * S * d * (2 * H + 2 * KV) bytes in
 // bf16; at qwen3-14b's heads (H = 40, KV = 8, d = 128) the two bounds meet
 // near S = 700 (3.35 TB/s against the bf16 tensor cores' 989 TFLOP/s), so a
 // 512-token prompt is bound by bytes and longer ones by operations.
+// Without the mask the work is the whole Sq x Sk rectangle: 4 * Sq * Sk * d
+// * H flops against 2 * d * (2 * Sq * H + 2 * Sk * KV) bytes, so a
+// cross-attention prefill of 512 queries over 1,600 patches (H = 32, KV =
+// 8) is bound by operations.
 //
 // Two kernels, chosen by the dtype (not a fallback: each type has one):
 //
 // bfloat16 -- tensor cores fed by TMA (the FlashAttention-3 shape).  One
-// block per (64-query tile, head, batch); the blocks of every head's last
-// query tile (the heaviest under the causal mask) are numbered first, so
-// they start first and the light ones fill in behind them.  The key sweep
+// block per (64-query tile, head, batch); under the causal mask the blocks
+// of every head's last query tile (the heaviest) are numbered first, so
+// they start first and the light ones fill in behind them; without it every
+// tile sweeps all Sk keys and the tiles run in plain order.  The key sweep
 // is a loop inside the block, since CUDA blocks carry nothing between
 // them.  A producer warp issues TMA loads: the Q tile once,
 // then 64-key K and V tiles into a ring of 2 stages (3 at d <= 64), each
 // stage with a `full` mbarrier (bytes landed) and an `empty` one (the 128
 // consumer threads are done with it).  The tensor maps are built on the
-// host at each call over (d, S, heads, B) from the wrapper's strides, so GQA
-// and transposed views are read in place; their 64-column boxes land with
+// host at each call over (d, Sq, H, B) for q and (d, Sk, KV, B) for k and v
+// from the wrapper's strides, so GQA and transposed views are read in place
+// (TMA fills rows past a map's length with zeros, which the mask keeps out
+// of the softmax); their 64-column boxes land with
 // the 128-byte swizzle that the wgmma descriptors read.  A head dim that is
 // not a multiple of 64 (zamba2's 112) has a map whose d extent is the real
 // d: TMA fills the columns past it with zeros, the products run at the
@@ -45,7 +57,7 @@
 //   S = Q . K^T  wgmma m64n64k16, bf16 -> f32, both operands K-major in
 //                shared memory (DP / 16 instructions);
 //   softmax      in registers on the accumulator fragments: masked scores
-//                (after the diagonal, outside the window, past S) are -inf
+//                (after the diagonal, outside the window, past Sk) are -inf
 //                *before* the row max, so a row whose tile is all masked
 //                keeps its carry; scores in log2 units, exp2; each row's
 //                max and sum are two xor shuffles over the 4 lanes that hold
@@ -145,8 +157,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int rep, int S, int d,
-                           int causal, int window, float scale,
+                           float* __restrict__ out, int rep, int Sq, int Sk,
+                           int d, int causal, int window, float scale,
                            int64_t q_sb, int64_t q_sh, int64_t q_ss,
                            int64_t k_sb, int64_t k_sh, int64_t k_ss,
                            int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -177,7 +189,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int i = tid; i < kBQ * d; i += kThreads) {
     const int r = i / d, c = i % d;
     const int qpos = q0 + r;
-    qs[r * dp + c] = qpos < S ? qp[qpos * q_ss + c] : 0.f;
+    qs[r * dp + c] = qpos < Sq ? qp[qpos * q_ss + c] : 0.f;
   }
   if (tid < kBQ) {
     row_m[tid] = -INFINITY;
@@ -190,7 +202,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < DCH; ++j) o[i][j] = 0.f;
 
-  const int kv_end = causal ? min(S, q0 + kBQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   kv_begin -= kv_begin % kBK;
 
@@ -199,7 +211,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     for (int i = tid; i < kBK * d; i += kThreads) {
       const int r = i / d, c = i % d;
       const int kpos = k0 + r;
-      const bool ok = kpos < S;
+      const bool ok = kpos < Sk;
       ks[r * dp + c] = ok ? kp[kpos * k_ss + c] : 0.f;
       vs[r * d + c] = ok ? vp[kpos * v_ss + c] : 0.f;
     }
@@ -230,7 +242,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 16 * j;
         const int kpos = k0 + col;
-        const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+        const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
                         (window <= 0 || qpos - kpos < window);
         ps[r * kPS + col] = ok ? sc[i][j] * scale : -INFINITY;
       }
@@ -289,7 +301,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     const int qpos = q0 + r;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DCH; ++j) {
@@ -301,28 +313,28 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
 template <int DCH>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int rep, int S, int d, int causal, int window, float scale,
-           const int64_t* st, cudaStream_t stream) {
+           int H, int rep, int Sq, int Sk, int d, int causal, int window,
+           float scale, const int64_t* st, cudaStream_t stream) {
   static std::atomic<uint64_t> done{0};
   auto kernel = flash_attention_f32_kernel<DCH>;
   const cudaError_t err = allow_smem(kernel, int(smem_bytes(16 * DCH)), done);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem_bytes(d), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), rep, S, d,
-      causal, window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<const float*>(v), static_cast<float*>(out), rep, Sq, Sk,
+      d, causal, window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11]);
   return 0;
 }
 
 int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int rep, int S, int d, int causal, int window,
+               int H, int rep, int Sq, int Sk, int d, int causal, int window,
                float scale, const int64_t* st, cudaStream_t s) {
-  if (d <= 32) return launch<2>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
-  if (d <= 64) return launch<4>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
-  if (d <= 128) return launch<8>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
-  if (d <= 256) return launch<16>(q, k, v, out, B, H, rep, S, d, causal, window, scale, st, s);
+  if (d <= 32) return launch<2>(q, k, v, out, B, H, rep, Sq, Sk, d, causal, window, scale, st, s);
+  if (d <= 64) return launch<4>(q, k, v, out, B, H, rep, Sq, Sk, d, causal, window, scale, st, s);
+  if (d <= 128) return launch<8>(q, k, v, out, B, H, rep, Sq, Sk, d, causal, window, scale, st, s);
+  if (d <= 256) return launch<16>(q, k, v, out, B, H, rep, Sq, Sk, d, causal, window, scale, st, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -537,7 +549,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ out, int H, int rep,
-                          int S, int d, int causal, int window,
+                          int Sq, int Sk, int d, int causal, int window,
                           float scale_log2,
                           int64_t o_sb, int64_t o_sh, int64_t o_ss) {
   using C = Shape<DP>;
@@ -550,10 +562,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + C::kStages;
 
-  // blocks start in index order: the last (heaviest, under the causal
-  // mask) query tile of every head first, then the next-to-last, ...
-  const int n_q = (S + kBQ - 1) / kBQ;
-  const int q0 = (n_q - 1 - int(blockIdx.x) / H) * kBQ;
+  // blocks start in index order: under the causal mask the last
+  // (heaviest) query tile of every head first, then the next-to-last, ...;
+  // without it every tile does the same work, in plain order
+  const int n_q = (Sq + kBQ - 1) / kBQ;
+  const int tile = int(blockIdx.x) / H;
+  const int q0 = (causal ? n_q - 1 - tile : tile) * kBQ;
   const int h = int(blockIdx.x) % H;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -561,7 +575,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = tid & 31;
 
   // key tiles that hold an unmasked key for some row of this query tile
-  const int kv_end = causal ? min(S, q0 + kBQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   kv_begin -= kv_begin % kBK;
   const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
@@ -646,7 +660,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int i = (x >> 1) & 1;
       const int qpos = row0 + 8 * i;
       const int kpos = k0 + 8 * (x >> 2) + 2 * t4 + (x & 1);
-      const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+      const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
                       (window <= 0 || qpos - kpos < window);
       sc[x] = ok ? sc[x] * scale_log2 : -INFINITY;
       mx[i] = fmaxf(mx[i], sc[x]);
@@ -710,14 +724,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int i = (x >> 1) & 1;
     const int qpos = row0 + 8 * i;
     const int col = 8 * (x >> 2) + 2 * t4;
-    if (qpos < S && col < d)
+    if (qpos < Sq && col < d)
       *reinterpret_cast<__nv_bfloat162*>(op + qpos * o_ss + col) =
           __floats2bfloat162_rn(o[x] * inv[i], o[x + 1] * inv[i]);
   }
 }
 
 // a 4-d map over (d, S, heads, B) of a bf16 tensor with the given element
-// strides; 64 x 64 boxes with the 128-byte swizzle, zeros outside
+// strides; 64 x 64 boxes with the 128-byte swizzle, zeros outside (past d
+// and past S)
 int encode(CUtensorMap* map, const void* base, int d, int S, int heads, int B,
            int64_t sb, int64_t sh, int64_t ss) {
   hopper::EncodeTiledFn fn = hopper::encode_tiled();
@@ -739,38 +754,39 @@ int encode(CUtensorMap* map, const void* base, int d, int S, int heads, int B,
 
 template <int DP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* out, int B, int H, int rep, int S, int d, int causal,
-           int window, float scale_log2, const int64_t* ost,
+           void* out, int B, int H, int rep, int Sq, int Sk, int d,
+           int causal, int window, float scale_log2, const int64_t* ost,
            cudaStream_t stream) {
   static std::atomic<uint64_t> done{0};
   auto kernel = flash_attention_tc_kernel<DP>;
   const cudaError_t err = allow_smem(kernel, Shape<DP>::kSmem, done);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(((S + kBQ - 1) / kBQ) * H, 1, B);
+  const dim3 grid(((Sq + kBQ - 1) / kBQ) * H, 1, B);
   kernel<<<grid, kThreads, Shape<DP>::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, rep, S, d, causal,
-      window, scale_log2, ost[0], ost[1], ost[2]);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, rep, Sq, Sk, d,
+      causal, window, scale_log2, ost[0], ost[1], ost[2]);
   return 0;
 }
 
 int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int KV, int S, int d, int causal, int window,
-               float scale, const int64_t* st, cudaStream_t s) {
+               int H, int KV, int Sq, int Sk, int d, int causal,
+               int window, float scale, const int64_t* st, cudaStream_t s) {
   // TMA reads 16-byte-aligned bases and strides (the wrapper checks first)
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16) return int(cudaErrorInvalidValue);
   for (int i = 0; i < 9; ++i)
     if (st[i] % 8) return int(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, d, S, H, B, st[0], st[1], st[2]);
-  if (err == 0) err = encode(&tk, k, d, S, KV, B, st[3], st[4], st[5]);
-  if (err == 0) err = encode(&tv, v, d, S, KV, B, st[6], st[7], st[8]);
+  // q's map ends at Sq, k's and v's at Sk: a key tile past Sk loads zeros
+  int err = encode(&tq, q, d, Sq, H, B, st[0], st[1], st[2]);
+  if (err == 0) err = encode(&tk, k, d, Sk, KV, B, st[3], st[4], st[5]);
+  if (err == 0) err = encode(&tv, v, d, Sk, KV, B, st[6], st[7], st[8]);
   if (err != 0) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
   const int rep = H / KV;
-  if (d <= 64) return launch<64>(tq, tk, tv, out, B, H, rep, S, d, causal, window, scale_log2, st + 9, s);
-  if (d <= 128) return launch<128>(tq, tk, tv, out, B, H, rep, S, d, causal, window, scale_log2, st + 9, s);
-  if (d <= 256) return launch<256>(tq, tk, tv, out, B, H, rep, S, d, causal, window, scale_log2, st + 9, s);
+  if (d <= 64) return launch<64>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, s);
+  if (d <= 128) return launch<128>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, s);
+  if (d <= 256) return launch<256>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -778,18 +794,21 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// dtype: 1 = float32, 2 = bfloat16 (tile_matmul's codes).  Strides are in
-// elements, (batch, head, position) for q, k, v and out in that order; the
+// dtype: 1 = float32, 2 = bfloat16 (tile_matmul's codes).  Sq and Sk are
+// the query and key lengths; they differ only when causal is 0.  Strides
+// are in elements, (batch, head, position) for q, k, v and out in that order; the
 // head dimension is contiguous in all four.  Returns 0 when the launch was
 // accepted, a cudaError_t as a positive int, or minus the CUresult of a
 // tensor map the driver refused.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
-    int H, int KV, int S, int d, int causal, int window, int64_t q_sb,
+    int H, int KV, int Sq, int Sk, int d, int causal, int window,
+    int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
     int64_t o_ss, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || d <= 0)
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
+      d <= 0 || (causal && Sq != Sk))
     return int(cudaErrorInvalidValue);
   const float scale = 1.f / sqrtf(float(d));
   const int64_t st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
@@ -798,11 +817,11 @@ extern "C" int flash_attention_launch(
   int err;
   switch (dtype) {
     case 1:
-      err = f32::dispatch_d(q, k, v, out, B, H, H / KV, S, d, causal, window, scale, st, s);
+      err = f32::dispatch_d(q, k, v, out, B, H, H / KV, Sq, Sk, d, causal, window, scale, st, s);
       break;
     case 2:
       if (d % 8 != 0) return int(cudaErrorInvalidValue);
-      err = tc::dispatch_d(q, k, v, out, B, H, KV, S, d, causal, window, scale, st, s);
+      err = tc::dispatch_d(q, k, v, out, B, H, KV, Sq, Sk, d, causal, window, scale, st, s);
       break;
     default:
       return int(cudaErrorInvalidValue);

@@ -48,23 +48,30 @@ def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """Prefill attention: q ``(B, H, S, d)``; k/v ``(B, KV, S, d)`` with
+    """Prefill attention: q ``(B, H, Sq, d)``; k/v ``(B, KV, Sk, d)`` with
     query head ``h`` reading KV head ``h // (H // KV)``; returns
-    ``(B, H, S, d)`` in q's dtype.  Scores, softmax and the ``p @ v``
+    ``(B, H, Sq, d)`` in q's dtype.  Scores, softmax and the ``p @ v``
     product are float32, at scale ``1/sqrt(d)``; ``causal`` keeps keys at
     or before the query, ``window > 0`` keeps keys less than ``window``
-    positions behind it."""
+    positions behind it.  Query ``i`` and key ``j`` sit at positions ``i``
+    and ``j``; the lengths may differ without ``causal`` (the encoder's
+    and cross-attention's full attention)."""
     B, H, S, d = q.shape
+    Sk = k.shape[2]
+    if causal and Sk != S:
+        raise ValueError(f"causal attention needs equal lengths, got Sq={S}, "
+                         f"Sk={Sk}")
     rep = H // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    qpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[:, None] >= pos[None, :]
+        mask &= qpos[:, None] >= kpos[None, :]
     if window > 0:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= qpos[:, None] - kpos[None, :] < window
     return _masked_softmax_pv(s, mask, v).to(q.dtype)
 
 

@@ -1,6 +1,6 @@
-"""LM substrate of the port: configs, the dense layers, the Mamba2 (SSD)
-block, the dense, ssm and hybrid models, and the decode-step serving
-graphs.
+"""LM substrate of the port: configs, the transformer and MoE layers, the
+Mamba2 (SSD) block, the models of all six families (dense, moe, ssm,
+hybrid, encdec, vlm), and the decode-step serving graphs.
 
 The reference's sharding and training names (``param_pspecs``,
 ``cache_pspecs``, ``loss_fn``, ``forward``, ``abstract_params``) wait for

@@ -1,14 +1,24 @@
 """The LM: parameters, decode caches, prefill and one decode step.
 
-The port of the reference's ``repro/models/lm.py`` for the ``dense``,
-``ssm`` and ``hybrid`` families.  The reference stacks its blocks along a
-leading ``layers`` axis and drives them with ``lax.scan``; here :class:`LM`
-holds one block per layer in an ``nn.ModuleList`` and a Python loop drives
-them:
+The port of the reference's ``repro/models/lm.py`` for all six families.
+The reference stacks its blocks along a leading ``layers`` axis and drives
+them with ``lax.scan``; here :class:`LM` holds one block per layer in an
+``nn.ModuleList`` and a Python loop drives them:
 
 * ``dense``: :class:`~repro_torch.models.layers.Block` (attention and MLP);
   per-layer window and rope theta come from :func:`layer_flags`, so
   gemma3-style local/global stacks run too;
+* ``moe``: the same block with the top-k
+  :class:`~repro_torch.models.layers.MoE` in place of the MLP;
+* ``encdec`` (seamless-m4t): ``enc_blocks``, an encoder of full
+  (non-causal) self-attention with rope over the source positions and an
+  MLP, no final norm, runs once over ``batch["enc_input"]`` ``(B, S_src,
+  D)``; every decoder block cross-attends to its output after its
+  self-attention;
+* ``vlm`` (llama-3.2-vision): every block holds a gated cross-attention
+  (``lnx``, ``xattn``, ``xgate``), which the layers whose
+  ``layer_flags(cfg)["use_cross"]`` is set run over ``batch["patches"]``
+  ``(B, n_patches, D)``, scaled by ``tanh(xgate)``;
 * ``ssm`` (mamba2): :class:`SSMBlock`, ``x + ssm(ln1(x))``;
 * ``hybrid`` (zamba2): SSM blocks plus one ``shared`` attention+MLP
   :class:`~repro_torch.models.layers.Block` (window 0, ``cfg.rope_theta``)
@@ -27,9 +37,11 @@ Entry points:
 Every entry point that makes tensors defaults to the CUDA device and raises
 when there is none; pass ``device="cpu"`` to run on the host.
 
-The other families (moe, encdec, vlm) raise ``NotImplementedError``
-naming the ROADMAP item that ports them; so do the training entry points
-(``forward``, ``loss_fn``), which are not here.
+The cross-attending families keep their memory (the encoder's output, or
+the patches) in the decode cache as ``"memory"``; a decode step projects it
+through each cross layer's ``wk``/``wv`` again, as the reference does.  The
+training entry points (``forward``, ``loss_fn``) are not here (ROADMAP
+Queue A item 11).
 """
 
 from __future__ import annotations
@@ -52,22 +64,9 @@ __all__ = ["LM", "SSMBlock", "block_spec", "cache_struct", "decode_step",
 
 Device = Union[str, torch.device, None]
 
-#: the ROADMAP item that ports each family the port does not run yet
-_FAMILY_NOT_PORTED = {
-    "moe": "ROADMAP Queue A item 9a (MoE: layers.moe)",
-    "encdec": "ROADMAP Queue A item 9b (enc-dec and VLM: cross-attention, "
-              "lm._encode)",
-    "vlm": "ROADMAP Queue A item 9b (enc-dec and VLM: cross-attention, "
-           "lm._encode)",
-}
 _SSM_FAMILIES = ("ssm", "hybrid")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in _FAMILY_NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch "
-            f"yet; see {_FAMILY_NOT_PORTED[cfg.family]}")
+#: the families whose decoder blocks cross-attend to a memory
+_CROSS_FAMILIES = ("encdec", "vlm")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -85,17 +84,28 @@ def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """Parameter shapes of one layer's block: attention and MLP (dense), or
+    MoE (moe), plus ``lnx`` and ``xattn`` (encdec) and ``xgate`` (vlm); or
     ``{ln1, ssm}`` (ssm, hybrid)."""
-    _require_ported(cfg)
-    if cfg.family in _SSM_FAMILIES:
-        return {"ln1": (cfg.d_model,), "ssm": ssm_spec(cfg)}
-    return _dense_block_spec(cfg)
+    fam, d = cfg.family, cfg.d_model
+    if fam in _SSM_FAMILIES:
+        return {"ln1": (d,), "ssm": ssm_spec(cfg)}
+    s = {"ln1": (d,), "attn": L.attn_spec(cfg), "ln2": (d,)}
+    if fam == "moe":
+        s["moe"] = L.moe_spec(cfg)
+    else:
+        s["mlp"] = L.mlp_spec(cfg)
+    if fam in _CROSS_FAMILIES:
+        s["lnx"] = (d,)
+        s["xattn"] = L.attn_spec(cfg)
+    if fam == "vlm":
+        s["xgate"] = (1,)
+    return s
 
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """Parameter shapes by reference path (``blocks`` without the layer
-    axis): the layout :func:`params_from_reference` reads.  A hybrid's
-    ``shared`` block is one block, not stacked."""
+    """Parameter shapes by reference path (``blocks`` and ``enc_blocks``
+    without the layer axis): the layout :func:`params_from_reference`
+    reads.  A hybrid's ``shared`` block is one block, not stacked."""
     v, d = padded_vocab(cfg), cfg.d_model
     spec: Dict[str, Any] = {
         "embed": {"table": (v, d)},
@@ -106,7 +116,17 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["unembed"] = {"out": (d, v)}
     if cfg.family == "hybrid":
         spec["shared"] = _dense_block_spec(cfg)
+    if cfg.family == "encdec":
+        spec["enc_blocks"] = _dense_block_spec(cfg)
     return spec
+
+
+def _stacked(cfg: ModelConfig) -> Dict[str, int]:
+    """The stacked parameter groups and their depths."""
+    out = {"blocks": cfg.n_layers}
+    if cfg.family == "encdec":
+        out["enc_blocks"] = cfg.enc_layers
+    return out
 
 
 def n_attn_slots(cfg: ModelConfig) -> int:
@@ -127,6 +147,8 @@ def layer_flags(cfg: ModelConfig) -> Dict[str, List]:
       attn_every == attn_every - 1``) and ``attn_slot``, the reference's
       ``max(cumsum(use_attn) - 1, 0)``: where ``use_attn``, the K/V slot the
       layer writes, the number of such layers before it;
+    * vlm: also ``use_cross`` (layer ``l`` runs its cross-attention when
+      ``l % cross_attn_every == cross_attn_every - 1``);
     * ssm: none."""
     n = cfg.n_layers
     if cfg.family in _SSM_FAMILIES:
@@ -141,9 +163,21 @@ def layer_flags(cfg: ModelConfig) -> Dict[str, List]:
     if cfg.local_global_ratio:
         r = cfg.local_global_ratio
         is_global = [i % (r + 1) == r for i in range(n)]
-        return {"window": [0 if g else cfg.window for g in is_global],
-                "theta": [1e6 if g else cfg.rope_theta for g in is_global]}
-    return {"window": [cfg.window] * n, "theta": [cfg.rope_theta] * n}
+        flags = {"window": [0 if g else cfg.window for g in is_global],
+                 "theta": [1e6 if g else cfg.rope_theta for g in is_global]}
+    else:
+        flags = {"window": [cfg.window] * n, "theta": [cfg.rope_theta] * n}
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        c = cfg.cross_attn_every
+        flags["use_cross"] = [i % c == c - 1 for i in range(n)]
+    return flags
+
+
+def _cross_layers(cfg: ModelConfig) -> List[bool]:
+    """Which decoder layers cross-attend to the memory."""
+    if cfg.family == "encdec":
+        return [True] * cfg.n_layers
+    return layer_flags(cfg).get("use_cross", [False] * cfg.n_layers)
 
 
 class _Embed(nn.Module):
@@ -176,29 +210,40 @@ class SSMBlock(nn.Module):
 
 
 class LM(nn.Module):
-    """The decoder: ``embed.table``, ``blocks`` (an ``nn.ModuleList`` of
-    :class:`~repro_torch.models.layers.Block` for the dense family, of
-    :class:`SSMBlock` for ssm and hybrid), ``final_norm``, ``unembed.out``
-    when embeddings are not tied and, for a hybrid, the ``shared``
-    attention+MLP :class:`~repro_torch.models.layers.Block`.  Parameters
-    are made empty on ``device`` in ``cfg``'s dtype and filled by
-    :func:`init_params` or :func:`params_from_reference`."""
+    """The model: ``embed.table``, ``blocks`` (an ``nn.ModuleList`` of
+    :class:`~repro_torch.models.layers.Block` for the dense, moe, encdec and
+    vlm families, of :class:`SSMBlock` for ssm and hybrid), ``final_norm``,
+    ``unembed.out`` when embeddings are not tied, for a hybrid the
+    ``shared`` attention+MLP :class:`~repro_torch.models.layers.Block` and
+    for an encdec the encoder's ``enc_blocks``.  Parameters are made empty
+    on ``device`` in ``cfg``'s dtype and filled by :func:`init_params` or
+    :func:`params_from_reference`."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        _require_ported(cfg)
         self.cfg = cfg
+        fam = cfg.family
         dt = cfg.torch_dtype
         v, d = padded_vocab(cfg), cfg.d_model
         self.embed = _Embed(v, d, dt, device)
-        block = SSMBlock if cfg.family in _SSM_FAMILIES else L.Block
+        if fam in _SSM_FAMILIES:
+            block, kw = SSMBlock, {}
+        else:
+            block, kw = L.Block, {"moe": fam == "moe",
+                                  "cross": fam in _CROSS_FAMILIES,
+                                  "gated": fam == "vlm"}
         self.blocks = nn.ModuleList(
-            block(cfg, dtype=dt, device=device) for _ in range(cfg.n_layers))
+            block(cfg, dtype=dt, device=device, **kw)
+            for _ in range(cfg.n_layers))
         self.final_norm = L._param((d,), dt, device)
         if not cfg.tie_embeddings:
             self.unembed = _Unembed(d, v, dt, device)
-        if cfg.family == "hybrid":
+        if fam == "hybrid":
             self.shared = L.Block(cfg, dtype=dt, device=device)
+        if fam == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                L.Block(cfg, dtype=dt, device=device)
+                for _ in range(cfg.enc_layers))
 
     @property
     def device(self) -> torch.device:
@@ -229,11 +274,13 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
 
     ``tree`` holds nested dicts of numpy arrays in the reference's layout:
     ``embed/table``, ``final_norm``, ``unembed/out`` (untied),
-    ``blocks/...`` with the leading ``layers`` axis stacked, and a hybrid's
-    unstacked ``shared/...``; each layer's slice goes to ``blocks[i]`` —
-    the serving counterpart of ``linalg.tiles.from_numpy_tiles``."""
+    ``blocks/...`` (and an encdec's ``enc_blocks/...``) with the leading
+    ``layers`` axis stacked, and a hybrid's unstacked ``shared/...``; each
+    layer's slice goes to ``blocks[i]`` (``enc_blocks[i]``) — the serving
+    counterpart of ``linalg.tiles.from_numpy_tiles``."""
     model = LM(cfg, resolve_device(device))
     params = dict(model.named_parameters())
+    stacked = _stacked(cfg)
 
     def put(name: str, x, where: str) -> None:
         p = params.pop(name)
@@ -251,12 +298,13 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
 
     for path, x in leaves(model_spec(cfg), tree, ()):
         where = "/".join(path)
-        if path[0] == "blocks":
-            if x.shape[:1] != (cfg.n_layers,):
+        if path[0] in stacked:
+            n = stacked[path[0]]
+            if x.shape[:1] != (n,):
                 raise ValueError(f"{where}: {x.shape[:1]} layers stacked, "
-                                 f"expected {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                put(".".join(("blocks", str(i)) + path[1:]), x[i],
+                                 f"expected {n}")
+            for i in range(n):
+                put(".".join((path[0], str(i)) + path[1:]), x[i],
                     f"{where}[{i}]")
         else:
             put(".".join(path), x, where)
@@ -275,20 +323,24 @@ def logits_from_hidden(params: LM, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # decode caches
 # ---------------------------------------------------------------------------
-def cache_struct(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                 n_patches: int = 0) -> Dict[str, Any]:
     """The decode cache's layout, the reference's, as ``(shape, dtype)``
     leaves and ``"index": int``:
 
-    * ``"k"``, ``"v"`` (dense, hybrid): ``(n_attn_slots, batch, max_len,
-      n_kv_heads, head_dim)`` in the model's dtype;
+    * ``"k"``, ``"v"`` (every family but ssm): ``(n_attn_slots, batch,
+      max_len, n_kv_heads, head_dim)`` in the model's dtype;
     * ``"ssm"`` (ssm, hybrid): a dict of every layer's stacked state,
       ``"ssm"`` ``(n_layers, batch, H, N, P)`` float32 and ``"conv_x"``,
       ``"conv_b"``, ``"conv_c"`` ``(n_layers, batch, conv_width - 1, C)``
-      in the model's dtype."""
-    _require_ported(cfg)
+      in the model's dtype;
+    * ``"memory"`` (encdec, vlm): ``(batch, M, d_model)`` in the model's
+      dtype, ``M`` being ``n_patches`` (the memory's length: the patches,
+      or the encoder's source positions), else ``cfg.n_patches``, at least
+      1."""
     dt = cfg.torch_dtype
     out: Dict[str, Any] = {}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family != "ssm":
         kv = ((n_attn_slots(cfg), batch, max_len, cfg.n_kv_heads,
                cfg.head_dim), dt)
         out["k"] = kv
@@ -296,12 +348,15 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     if cfg.family in _SSM_FAMILIES:
         out["ssm"] = {name: ((cfg.n_layers,) + shape, sdt) for name, (shape, sdt)
                       in ssm_state_spec(cfg, batch, dt).items()}
+    if cfg.family in _CROSS_FAMILIES:
+        m = max(1, n_patches or cfg.n_patches)
+        out["memory"] = ((batch, m, cfg.d_model), dt)
     out["index"] = int
     return out
 
 
 def zeros_cache(cfg: ModelConfig, batch: int, max_len: int,
-                device: Device = None) -> Dict[str, Any]:
+                device: Device = None, n_patches: int = 0) -> Dict[str, Any]:
     """An empty decode cache on ``device`` (CUDA by default).  ``index``,
     the fill, is a Python int kept on the host (the reference carries an
     int32 device scalar with the same values), so a decode step passes it
@@ -317,7 +372,7 @@ def zeros_cache(cfg: ModelConfig, batch: int, max_len: int,
         shape, dt = spec
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    return make(cache_struct(cfg, batch, max_len))
+    return make(cache_struct(cfg, batch, max_len, n_patches))
 
 
 def _rope_by_theta(cfg: ModelConfig, flags, positions: torch.Tensor):
@@ -370,19 +425,56 @@ def _ssm_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
+def _encode(params: LM, cfg: ModelConfig,
+            enc_input: torch.Tensor) -> torch.Tensor:
+    """The encoder (the reference's ``lm._encode``): every ``enc_blocks``
+    layer over ``enc_input`` ``(B, S_src, D)``, full (non-causal)
+    self-attention with rope at ``cfg.rope_theta`` over the source
+    positions, then the MLP; no final norm."""
+    positions = torch.arange(enc_input.shape[1],
+                             device=enc_input.device)[None, :]
+    tables = L.rope_tables(positions, cfg.rope_theta, cfg.head_dim)
+    x = enc_input
+    for blk in params.enc_blocks:
+        x, _ = blk(x, window=0, rope_cs=tables, causal=False)
+    return x
+
+
+def _memory(params: LM, cfg: ModelConfig, batch: Dict[str, Any]):
+    """The memory the decoder cross-attends to, in the model's dtype: the
+    encoder's output over ``batch["enc_input"]`` (encdec) or
+    ``batch["patches"]`` (vlm); None for the other families."""
+    key = {"encdec": "enc_input", "vlm": "patches"}.get(cfg.family)
+    if key is None:
+        return None
+    if key not in batch:
+        raise ValueError(f"family {cfg.family!r} needs batch[{key!r}] "
+                         f"(B, S, d_model)")
+    src = torch.as_tensor(batch[key], device=params.device,
+                          dtype=cfg.torch_dtype)
+    return _encode(params, cfg, src) if key == "enc_input" else src
+
+
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
             max_len: int = 0):
     """Run the prompt ``batch["tokens"]`` ``(B, S)`` (a tensor or numpy
     array of ids) through the model; returns ``(cache, logits)`` with the
     cache filled to ``S`` of ``max_len`` (default ``S + 1``) positions and
-    the last position's logits ``(B, 1, padded_vocab)``."""
+    the last position's logits ``(B, 1, padded_vocab)``.  An encdec batch
+    also holds ``"enc_input"`` ``(B, S_src, D)``, which the encoder runs
+    over first, a vlm batch ``"patches"`` ``(B, n_patches, D)``; either
+    memory is kept in the cache as ``"memory"``."""
     _no_ctx(ctx)
     dev = params.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     B, Sq = tokens.shape
     max_len = max_len or Sq + 1
-    cache = zeros_cache(cfg, B, max_len, device=dev)
+    memory = _memory(params, cfg, batch)
+    n_patches = memory.shape[1] if memory is not None else 0
+    cache = zeros_cache(cfg, B, max_len, device=dev, n_patches=n_patches)
+    if memory is not None:
+        cache["memory"].copy_(memory)
     x = params.embed.table[tokens]
     positions = torch.arange(Sq, device=dev)[None, :]
     if cfg.family in _SSM_FAMILIES:
@@ -390,9 +482,11 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
     else:
         flags = layer_flags(cfg)
         tables = _rope_by_theta(cfg, flags, positions)
+        cross = _cross_layers(cfg)
         for i, blk in enumerate(params.blocks):
             x, kv = blk(x, window=flags["window"][i],
-                        rope_cs=tables[flags["theta"][i]])
+                        rope_cs=tables[flags["theta"][i]],
+                        memory=memory if cross[i] else None)
             cache["k"][i, :, :Sq] = kv["k"]
             cache["v"][i, :, :Sq] = kv["v"]
     cache["index"] = Sq
@@ -410,6 +504,7 @@ def decode_step(params: LM, cfg: ModelConfig, cache: Dict[str, Any],
     cache *in place*: this token's K/V into ``cache["k"]``/``cache["v"]``
     and every layer's new SSM and conv states into ``cache["ssm"]``; the
     returned cache is a new dict over the same tensors with ``index + 1``.
+    An encdec or vlm step cross-attends to the cache's ``"memory"``.
     A cache with K/V holds ``max_len`` positions and raises when full; an
     ssm cache is a fixed-size state and never fills."""
     _no_ctx(ctx)
@@ -424,11 +519,14 @@ def decode_step(params: LM, cfg: ModelConfig, cache: Dict[str, Any],
     else:
         flags = layer_flags(cfg)
         tables = _rope_by_theta(cfg, flags, positions)
+        cross = _cross_layers(cfg)
+        memory = cache.get("memory")
         ck, cv = cache["k"], cache["v"]
         for i, blk in enumerate(params.blocks):
             x, _ = blk(x, window=flags["window"][i],
                        rope_cs=tables[flags["theta"][i]],
-                       cache={"k": ck[i], "v": cv[i]}, cache_index=idx)
+                       cache={"k": ck[i], "v": cv[i]}, cache_index=idx,
+                       memory=memory if cross[i] else None)
     new_cache = dict(cache)
     new_cache["index"] = idx + 1
     h = L.rmsnorm(x, params.final_norm, cfg.norm_eps)

@@ -16,12 +16,18 @@ of prompts, then decodes ``--tokens`` tokens per request, under one of:
 ``--arrivals poisson`` serves a seeded Poisson stream of single-prompt
 requests through the continuous-batching engine instead.
 
-The model is ``--arch``'s published configuration (a dense, ssm or hybrid
-family: qwen3-14b by default, mamba2-2.7b, zamba2-7b, ...) at full width
-and depth in its own dtype, on the CUDA device: ``--reduced`` takes the
-reference's small smoke configuration, ``--layers N`` cuts the depth,
-``--device cpu`` runs on the host.  Prompts are drawn with numpy from seed
-1 (the reference draws them with ``jax.random``, so the ids differ).
+The model is ``--arch``'s published configuration (any family: qwen3-14b
+by default, qwen3-moe-235b-a22b, mamba2-2.7b, zamba2-7b,
+seamless-m4t-medium, llama-3.2-vision-11b, ...) at full width and depth in
+its own dtype, on the CUDA device: ``--reduced`` takes the reference's
+small smoke configuration, ``--layers N`` cuts the depth, ``--device cpu``
+runs on the host.  Prompts are drawn with numpy from seed 1 (the reference
+draws them with ``jax.random``, so the ids differ); a vlm batch also gets
+``n_patches`` patch embeddings per request and an encdec batch 32 frames
+of encoder input per request, standard normal from numpy seed 2, as the
+reference makes them.  ``--arrivals poisson`` serves decoder-only families
+only (its requests carry a prompt and nothing else), as in the
+reference.
 ``--trace PATH`` serves with the flight recorder on and writes the last
 decode step (under ``--arrivals poisson``: the most heavily loaded step) as
 Perfetto JSON; it needs a task-graph scheduler.  ``--procs N`` (with
@@ -88,6 +94,26 @@ def make_serving_fns(arch: str = "qwen3-14b", prompt_len: int = 64,
     return (lambda cache, tok: decode_step(model, cfg, cache, tok),
             lambda prompt: prefill(model, cfg, {"tokens": prompt},
                                    max_len=max_len))
+
+
+#: the encoder input's frames per request (the reference's serve_lm)
+ENC_FRAMES = 32
+
+
+def memory_inputs(cfg, batch: int, device, frames: int = ENC_FRAMES,
+                  seed: int = 2):
+    """What a cross-attending family's batch carries beside its prompts: a
+    vlm's ``patches`` ``(batch, n_patches, d_model)`` or an encdec's
+    ``enc_input`` ``(batch, frames, d_model)``, standard normal from numpy
+    ``seed``, in the model's dtype on ``device``; nothing for the other
+    families."""
+    key = {"vlm": "patches", "encdec": "enc_input"}.get(cfg.family)
+    if key is None:
+        return {}
+    n = cfg.n_patches if key == "patches" else frames
+    x = np.random.default_rng(seed).standard_normal(
+        (batch, n, cfg.d_model), dtype=np.float32)
+    return {key: torch.as_tensor(x, device=device).to(cfg.torch_dtype)}
 
 
 def _sync(device: torch.device) -> None:
@@ -193,6 +219,7 @@ def serve_batch(args, cfg, model, device):
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
     batch = {"tokens": torch.as_tensor(prompts, device=device)}
+    batch.update(memory_inputs(cfg, args.batch, device))
     print(f"arch={cfg.name} layers={cfg.n_layers} device={device} "
           f"batch={args.batch} prompt={args.prompt_len} "
           f"scheduler={args.scheduler}")
@@ -295,6 +322,8 @@ def main(argv=None):
                  "--arrivals poisson")
 
     cfg = model_config(args.arch, args.reduced, args.layers)
+    if args.arrivals == "poisson" and cfg.family in ("vlm", "encdec"):
+        ap.error("--arrivals poisson supports decoder-only families")
     device = resolve_device(args.device)
     model = init_params(cfg, seed=0, device=device)
     if args.arrivals == "poisson":

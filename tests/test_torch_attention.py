@@ -79,11 +79,38 @@ def test_flash_plain_matches_chunked_attn_with_gqa(S, H, KV, window):
                                **TOL)
 
 
+@pytest.mark.parametrize("Sq,Sk", [(24, 70), (70, 24), (1, 40), (9, 9)])
+@pytest.mark.parametrize("H,KV", [(4, 2), (4, 4)])
+def test_flash_non_causal_unequal_lengths_match_chunked_attn(Sq, Sk, H, KV):
+    """``layers._chunked_attn(causal=False)`` as the encoder and
+    cross-attention call it: Sq queries over Sk keys, grouped heads, no
+    mask; the wrapper's plain version on CPU tensors, and the same through
+    ``flash_attention_ref`` directly."""
+    rng = np.random.default_rng(6)
+    B, hd = 2, 32
+    q = _rand(rng, B, Sq, H, hd)
+    k, v = _rand(rng, B, Sk, KV, hd), _rand(rng, B, Sk, KV, hd)
+    ref = jax_layers._chunked_attn(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=False, window=0,
+                                   q_offset=0)
+    args = (_t(q).transpose(1, 2), _t(k).transpose(1, 2),
+            _t(v).transpose(1, 2))
+    ours = flash_attention(*args, causal=False)
+    assert ours.shape == (B, H, Sq, hd)
+    np.testing.assert_allclose(ours.transpose(1, 2).numpy(), np.asarray(ref),
+                               **TOL)
+    plain = flash_attention_ref(*args, causal=False)
+    assert torch.equal(plain, ours)
+
+
 def test_flash_wrapper_refuses_what_prefill_does_not_call():
     q = torch.zeros(1, 2, 8, 16)
     kv = torch.zeros(1, 1, 6, 16)
     with pytest.raises(NotImplementedError, match="Queue B item 3"):
         flash_attention(q, kv, kv)
+    with pytest.raises(NotImplementedError, match="causal=True"):
+        flash_attention(q, kv, kv, causal=True)
+    assert flash_attention(q, kv, kv, causal=False).shape == (1, 2, 8, 16)
     with pytest.raises(NotImplementedError, match="q_offset"):
         flash_attention(q, q[:, :1], q[:, :1], q_offset=4)
     with pytest.raises(ValueError, match="group"):

@@ -264,6 +264,9 @@ def _assert_flash_close(got, q, k, v, *, causal, window):
     (1, 32, 32, 545, 112, 545, 0),      # zamba2's shared block: MHA, d = 112
     (1, 40, 8, 545, 128, 3, 0),         # fewer keys than splits
     (3, 8, 1, 100, 64, 5, 0),           # fewer keys than splits, B = 3
+    (1, 32, 8, 1600, 128, 1600, 0),     # llama-vision's cross decode: M rows
+    (1, 64, 4, 545, 128, 545, 0),       # qwen3-moe: a group of 16 (MAX_GROUP)
+    (1, 16, 16, 1000, 64, 1000, 0),     # seamless's cross decode
 ])
 def test_decode_attention_kernel_matches_plain_version(
         cuda, dtype, B, H, KV, S, d, length, window):
@@ -317,6 +320,72 @@ def test_flash_attention_kernel_matches_plain_version(
     vt = v.transpose(1, 2).contiguous().transpose(1, 2)
     assert torch.equal(flash_attention(qt, kt, vt, causal=causal,
                                        window=window), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d", [
+    (1, 32, 8, 512, 1600, 128),         # llama-vision's cross prefill
+    (1, 16, 16, 1000, 1000, 64),        # seamless's encoder (non-causal)
+    (1, 16, 16, 16, 1000, 64),          # seamless's cross prefill
+    (2, 4, 2, 70, 33, 32),              # more queries than keys, ragged
+    (1, 8, 8, 1, 130, 64),              # one query
+    (1, 32, 32, 100, 300, 112),         # a padded head dim
+])
+def test_flash_attention_unequal_lengths_match_plain_version(
+        cuda, dtype, B, H, KV, Sq, Sk, d):
+    """Full (non-causal) attention of Sq queries over Sk keys: the query
+    tiles run over Sq, the key loop over Sk with the ragged last key tile
+    masked; the same bits twice and through strided views."""
+    rng = np.random.default_rng(13)
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, H, Sq, d), dt, cuda)
+    k = _randn(rng, (B, KV, Sk, d), dt, cuda)
+    v = _randn(rng, (B, KV, Sk, d), dt, cuda)
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.shape == (B, H, Sq, d) and got.dtype == dt
+    _assert_flash_close(got, q, k, v, causal=False, window=0)
+    assert torch.equal(flash_attention(q, k, v, causal=False), got)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    vt = v.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(flash_attention(qt, kt, vt, causal=False), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk", [(512, 1600), (16, 1000), (1000, 1000)])
+def test_flash_attention_finds_the_last_key_and_ignores_keys_past_sk(
+        cuda, dtype, Sq, Sk):
+    """Two needle inputs.  (1) Every query's weight sits on key Sk - 1, the
+    last of a ragged tile: the output is that key's value row.  (2) Every
+    real key scores far below zero while rows past Sk in the same buffer
+    hold keys that would outweigh them all: the kernel must read K through
+    a map that ends at Sk and mask the zero fill past it, so the output is
+    the plain version's over the Sk keys."""
+    dt = getattr(torch, dtype)
+    H, KV, d = 16, 8, 64
+    rng = np.random.default_rng(14)
+    u = rng.standard_normal((1, KV, 1, d))
+    q = torch.from_numpy(np.repeat(np.repeat(u, H // KV, axis=1), Sq,
+                                   axis=2)).to(cuda, dt)
+    k = rng.standard_normal((1, KV, Sk + 64, d))
+    k[:, :, Sk - 1] = 2.0 * u[:, :, 0]
+    v = rng.standard_normal((1, KV, Sk, d))
+    kt, vt = (torch.from_numpy(x).to(cuda, dt) for x in (k, v))
+    got = flash_attention(q, kt[:, :, :Sk], vt, causal=False)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, q, kt[:, :, :Sk], vt, causal=False, window=0)
+    near = (got[0, 0].float() - vt[0, 0, Sk - 1].float()).abs()
+    assert near.max().item() < 0.25
+    # (2): real keys anti-aligned with the queries, needles past Sk
+    k = -u + 0.1 * rng.standard_normal((1, KV, Sk + 64, d))
+    k[:, :, Sk:] = 2.0 * u
+    kt = torch.from_numpy(k).to(cuda, dt)
+    got = flash_attention(q, kt[:, :, :Sk], vt, causal=False)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, q, kt[:, :, :Sk], vt, causal=False, window=0)
 
 
 def _needles(rng, B, H, KV, S, d, offset, dtype, device):
@@ -438,6 +507,95 @@ def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
         loop.append(torch.cat(toks, 1))
     assert state.tokens().shape == (lanes, steps)
     assert torch.equal(state.tokens(), torch.cat(loop, 0))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
+def test_reduced_cross_and_moe_models_serve_on_card(cuda, arch):
+    """The reduced moe, encdec and vlm configs cut to 2 layers, bfloat16 on
+    the card: the decode-step graphs give the plain loop's tokens bit for
+    bit, and the kernels launch once per attention use: flash for every
+    self-attention, encoder layer and cross prefill, decode attention for
+    every self-attention and cross layer in a lane-step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import (build_decode_graph, decode_step,
+                                    greedy_sample, init_params,
+                                    make_decode_state, prefill)
+    from repro_torch.models.lm import layer_flags
+    from repro_torch.serving.serve_lm import memory_inputs
+
+    cfg = get_config(arch).reduced(n_layers=2, dtype="bfloat16")
+    model = init_params(cfg, seed=0)
+    with torch.no_grad():
+        for blk in model.blocks:
+            if hasattr(blk, "xgate"):
+                blk.xgate.fill_(1.0)
+    lanes, prompt, steps = 3, 40, 5
+    max_len = prompt + steps + 1
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (lanes, prompt), dtype=np.int32), device=cuda)}
+    batch.update(memory_inputs(cfg, lanes, cuda, frames=37))
+    cross = {"encdec": cfg.n_layers,
+             "vlm": layer_flags(cfg).get("use_cross", []).count(True)}.get(
+                 cfg.family, 0)
+    enc = cfg.enc_layers if cfg.family == "encdec" else 0
+
+    reset_launch_counts()
+    state = make_decode_state(model, cfg, batch, n_shards=lanes,
+                              max_len=max_len)
+    with repro_torch.Session(2) as s:
+        for _ in range(steps - 1):
+            s.run(build_decode_graph(
+                state, lambda p, c, t: decode_step(p, cfg, c, t)))
+    torch.cuda.synchronize()
+    assert launch_counts() == {
+        "tile_matmul": 0,
+        "flash_attention": (cfg.n_layers + cross + enc) * lanes,
+        "decode_attention": (cfg.n_layers + cross) * lanes * (steps - 1),
+        "ssd_scan": 0}
+    assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
+    loop = []
+    for b in range(lanes):
+        alone = {k: v[b:b + 1] for k, v in batch.items()}
+        cache, logits = prefill(model, cfg, alone, max_len=max_len)
+        tok = greedy_sample(logits)
+        toks = [tok]
+        for _ in range(steps - 1):
+            cache, logits = decode_step(model, cfg, cache, tok)
+            tok = greedy_sample(logits)
+            toks.append(tok)
+        loop.append(torch.cat(toks, 1))
+    assert torch.equal(state.tokens(), torch.cat(loop, 0))
+
+
+def test_moe_layer_on_card_matches_the_per_expert_loop(cuda):
+    """qwen3-moe's reduced MoE layer in float32 on the card at 512 tokens
+    with a capacity factor of 1 (C = 128, the mean of 1,024 routed pairs
+    over 8 experts): both batched schedules against ``moe_loop_ref``, with
+    tokens dropped at capacity, each the same bits twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-moe-235b-a22b").reduced(capacity_factor=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mod = L.MoE(cfg, dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        for name in ("router", "wg", "wu", "wd"):
+            w = getattr(mod, name)
+            w.copy_(torch.randn(w.shape, generator=gen, device=cuda)
+                    / w.shape[-2] ** 0.5)
+        x = torch.randn((512, cfg.d_model), generator=gen, device=cuda)
+        wts, ids = L.moe_route(x, mod.router, cfg.top_k)
+        C = L.moe_capacity(512, cfg)
+        counts = torch.bincount(ids.flatten(), minlength=cfg.n_experts)
+        assert counts.max().item() > C
+        want = L.moe_loop_ref(x, wts, ids, mod.wg, mod.wu, mod.wd, C)
+        for schedule in (mod._combine_slots, mod._combine_pairs):
+            got = schedule(x, wts, ids, C)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            assert torch.equal(schedule(x, wts, ids, C), got)
 
 
 # the SSD scan: float32 sums in another order than the plain version's;

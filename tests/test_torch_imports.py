@@ -15,6 +15,7 @@ def test_port_imports_without_jax_or_reference_package():
         "import repro_torch, repro_torch.linalg, repro_torch.kernels\n"
         "import repro_torch.models, repro_torch.serving, repro_torch.configs\n"
         "import repro_torch.serving.serve_lm, repro_torch.models.ssm\n"
+        "import repro_torch.models.layers, repro_torch.models.lm\n"
         "import repro_torch.linalg.lu, repro_torch.linalg.qr\n"
         "import repro_torch.linalg.panels, repro_torch.linalg.dist\n"
         "import repro_torch.core.static_schedule, repro_torch.exec.replay\n"
