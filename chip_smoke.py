@@ -125,7 +125,26 @@ Phases, each printed as one JSON line:
     patches, or 1,000 frames of encoder input and a 16-token prompt),
     and prompt 0 with another memory, whose logits must move; qwen3-moe also a 6-request Poisson stream as in 8;
     each a profiled step as in 9;
-12. the script's seconds so far, a ``kernels`` summary line, then the
+12. training: ``FlashAttentionFn`` (the kernel's forward, the torch-op
+    backward) against autograd through the plain version in float32, at
+    qwen3-14b's training shape (B = 2, 40 / 8 heads, S = 1,024, causal),
+    a windowed case and llama-3.2-vision's cross shape (512 over 1,600),
+    in both types: the forward bit-identical to the no-grad launch, the
+    same bits twice, dq, dk and dv within limits derived from the
+    kernel's rounding (``TRAIN_GRAD_F32``), the forward + backward pair
+    timed against SDPA's pair; then ``make_train_step`` on qwen3-14b at
+    full width cut to 4 of its 40 layers, bf16, seq 1,024, batch 4 in 2
+    microbatches, ``overlap="hybrid"``, 8 steps through the prefetching
+    data stream (every loss finite, step 8's below step 1's, a held-out
+    batch's loss lower after than before, flash launches exactly 16 a
+    step, one ``serial`` step from the same start against hybrid's
+    first; step ms, tokens/s, ``train_mfu``, peak memory, AdamW ms, one
+    profiled step); then the ``Trainer`` at the reference example's 100m
+    configuration, float32: 40 steps, checkpoints every 20, preempted at
+    25 and restored at 25 by a new trainer whose batches equal an
+    uninterrupted stream's; the loss falls; checkpoint bytes and save
+    seconds;
+13. the script's seconds so far, a ``kernels`` summary line, then the
     device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -1326,6 +1345,592 @@ def moe_check_phase(smi) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# training: flash attention's gradient, the train step, the trainer
+#
+# the flash Function's gradients against autograd through the plain
+# version in float32 (its inputs upcast).  The backward is float32 torch
+# ops, so dv differs from the reference's only in the order of float32 sums
+# (TRAIN_GRAD_F32, normwise: a sum of ~2,000 terms rounds by at most about
+# 2,000 * 2**-24 = 1.2e-4 of its largest term, in practice far less; 1e-4
+# of the tensor's largest entry) and, for bfloat16
+# inputs, the one rounding of the result (2**-8 |x|).  dq and dk also read
+# the forward's output O through D = rowsum(dO * O): the kernel's O differs
+# from the float32 reference's by at most its own limit L_O (ATTN_TOL plus
+# FLASH_P_ROUND times the attention of |v|), so D_i by at most
+# B_i = sum_d |dO_id| L_O,id, dS_ij = P_ij (dP_ij - D_i) by P_ij B_i, and
+# dQ_i = s sum_j dS_ij K_j by s B_i (P |K|)_i, dK_j = s sum_i dS_ij Q_i by
+# s (P^T (B |Q|))_j (s = 1/sqrt(d)): the limits add these to dv's.
+TRAIN_GRAD_F32 = 1e-4
+BF16_ROUND = 2.0 ** -8
+#: the train step: qwen3-14b at full width cut from 40 to 4 layers.  At 18
+#: bytes a parameter (bf16 p, grad and carried bucket; f32 accumulator, m
+#: and v) its 2.878 B parameters take 51.8 GB; 8 layers would take 75.6 GB
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-14b", 4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 4, 2, 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
+                 clip_norm=1.0)
+#: serial against hybrid after one step from the same start: the same
+#: buckets in the same order, but the embedding's backward may add its
+#: rows in another order on each run, and an Adam step's g / (|g| + eps)
+#: turns a gradient's sign near zero into a whole +-lr: at most this share
+#: of the parameters may differ, none by more than 2 lr (plus one bf16
+#: unit)
+STEP_DIFF_SHARE = 1e-3
+#: the trainer: the reference example's 100m configuration, 40 steps,
+#: checkpoints every 20, preempted at 25.  Its schedule is 5e-4 after 5
+#: warmup steps, not the example's 3e-3 after 20 (EXAMPLE_OPT): from the
+#: port's start (norm scales of one, each layer at its own fan-in) the
+#: 100m loss rises under 3e-3 once the warmup ends, while from a draw of
+#: the reference's initialisation (a zero final norm) it stays at log V
+#: (trainer_lr_witness_phase); from one tree the two packages' steps agree
+#: (tests/torch_lr_witness.py)
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_PREEMPT = 40, 20, 25
+TRAINER_OPT = dict(lr=5e-4, warmup_steps=5, total_steps=TRAINER_STEPS)
+#: the reference example's schedule (``examples/train_lm.py``)
+EXAMPLE_OPT = dict(lr=3e-3, warmup_steps=20, total_steps=TRAINER_STEPS)
+#: the data step of the held-out batch on which each training phase's
+#: loss is read before and after it trains: the same batch both times, so
+#: the comparison carries no batch-to-batch noise
+HELD_OUT_STEP = 1_000_000
+TRAIN_DEVICE = "cuda"
+
+
+def flash_grad_reference(q, k, v, dout, *, causal, window):
+    """The float32 reference's output and gradients of flash attention at
+    q, k, v (upcast) and, per element, the most that dq and dk may shift
+    when the kernel's output is off by up to its own limit (ATTN_TOL, and
+    for bfloat16 FLASH_P_ROUND's allowance), through D = rowsum(dO * O)
+    (see TRAIN_GRAD_F32).  Returns (out, the kernel output's limit
+    against it, (dq, dk, dv), (dq, dk shifts))."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    kw = dict(causal=causal, window=window)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    out = flash_attention_ref(qf, kf, vf, **kw)
+    grads = torch.autograd.grad(out, (qf, kf, vf), dout.float())
+    t = ATTN_TOL[q.dtype]
+    with torch.no_grad():
+        out_limit = t["atol"] + t["rtol"] * out.abs()
+        if q.dtype == torch.bfloat16:
+            out_limit = out_limit + flash_slack(causal, window)(q, k, v)
+        bound = (dout.float().abs() * out_limit).sum(-1, keepdim=True)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        q0, k0 = qf.detach(), kf.detach()
+        dq_shift = scale * bound * flash_attention_ref(q0, k0, k0.abs(), **kw)
+    vv = vf.detach().clone().requires_grad_()
+    (ptq,) = torch.autograd.grad(flash_attention_ref(q0, k0, vv, **kw),
+                                 (vv,), bound * q0.abs())
+    return out.detach(), out_limit, grads, (dq_shift, scale * ptq)
+
+
+def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
+                    timed=False):
+    """``FlashAttentionFn`` (the kernel's forward, the torch-op backward)
+    against autograd through the plain version, in float32 and bfloat16 on
+    the same numpy inputs: the forward bit-identical to the no-grad call
+    and within its limit of the float32 plain version's output, the same
+    bits twice, each gradient within its derived limit; with
+    ``timed``, the forward + backward pair against the plain version's
+    pair and SDPA's (the library call of the pair), in bfloat16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s) for s in
+              ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d), (B, H, Sq, d))]
+    kw = dict(causal=causal, window=window)
+    row = {"phase": "train_flash_grad", "case": name, "B": B, "H": H,
+           "KV": KV, "Sq": Sq, "Sk": Sk, "d": d, **kw, "card": smi}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        q, k, v, dout = (torch.from_numpy(a).to(TRAIN_DEVICE, dtype)
+                         for a in arrays)
+        with torch.no_grad():
+            direct = flash_attention(q, k, v, **kw)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention(*leaves, **kw)
+            runs.append((out.detach(), *torch.autograd.grad(out, leaves,
+                                                            dout)))
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0][0], direct),
+              f"{name} {key}: the Function's forward differs from the "
+              f"no-grad call")
+        for a, b_, what in zip(runs[0], runs[1], ("out", "dq", "dk", "dv")):
+            check(torch.equal(a, b_), f"{name} {key}: two runs' {what} "
+                  f"differ")
+        want_out, out_limit, grads, shifts = flash_grad_reference(
+            q, k, v, dout, causal=causal, window=window)
+        # the forward against the float32 reference, at the kernel phase's
+        # limit (ATTN_TOL, and FLASH_P_ROUND's allowance for bfloat16)
+        diff = (runs[0][0].float() - want_out).abs()
+        share = (diff / out_limit).max().item()
+        errs = {"out": {"max_abs_err": diff.max().item(),
+                        "max_abs": want_out.abs().max().item(),
+                        "tol_share": share}}
+        check(share <= 1.0, f"{name} {key}: the forward is off the plain "
+              f"version by {diff.max().item()}, {share:.3g} of its limit")
+        del want_out, out_limit, diff
+        for what, got, want, shift in zip(("dq", "dk", "dv"), runs[0][1:],
+                                          grads, shifts + (None,)):
+            diff = (got.float() - want).abs()
+            limit = TRAIN_GRAD_F32 * want.abs().max()
+            if dtype == torch.bfloat16:
+                limit = limit + BF16_ROUND * want.abs()
+            if shift is not None:
+                limit = limit + shift
+            share = (diff / limit).max().item()
+            errs[what] = {"max_abs_err": diff.max().item(),
+                          "max_abs": want.abs().max().item(),
+                          "tol_share": share}
+            check(share <= 1.0, f"{name} {key}: {what} off by "
+                  f"{diff.max().item()}, {share:.3g} of its limit")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{name} {key}: {what} is not finite")
+        row[key] = errs
+        del runs, grads, shifts
+    if timed:
+        q, k, v, dout = (torch.from_numpy(a).to(TRAIN_DEVICE, torch.bfloat16)
+                         for a in arrays)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+
+        def pair(fwd):
+            return lambda: torch.autograd.grad(fwd(*leaves), leaves, dout)
+
+        if window > 0:
+            qpos = torch.arange(Sq, device=TRAIN_DEVICE)[:, None]
+            kpos = torch.arange(Sk, device=TRAIN_DEVICE)[None, :]
+            mask = (qpos >= kpos) & (qpos - kpos < window)
+            lib = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa
+                q_, k_, v_, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa
+                q_, k_, v_, is_causal=causal, enable_gqa=True)
+        if causal:
+            qi = torch.arange(Sq)[:, None]
+            ki = torch.arange(Sk)[None, :]
+            keep = qi >= ki
+            if window > 0:
+                keep &= qi - ki < window
+            pairs = int(keep.sum())
+        else:
+            pairs = Sq * Sk
+        # forward: q, k, v read, out written; backward: q, k, v, out, dout
+        # read, dq, dk, dv written.  Operations: QK^T and PV forward, dP,
+        # dV, dQ and dK backward, two a term each (P kept, not recomputed)
+        n_bytes = 2 * B * d * (2 * H * Sq + 2 * KV * Sk
+                               + 3 * H * Sq + 2 * KV * Sk
+                               + H * Sq + 2 * KV * Sk)
+        bound_ms, bound_by = _bound(n_bytes, 12.0 * B * H * d * pairs)
+        row.update({
+            "dtype": "bfloat16",
+            "max_abs_err": max(e["max_abs_err"] for e in
+                               row["bfloat16"].values()),
+            "ms": device_ms(pair(lambda *x: flash_attention(*x, **kw)),
+                            reps=10),
+            "plain_ms": device_ms(pair(lambda *x: flash_attention_ref(
+                *x, **kw)), reps=3),
+            "library_ms": device_ms(pair(lib), reps=10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "forward_ms": device_ms(lambda: flash_attention(
+                q.detach(), k.detach(), v.detach(), **kw), reps=10)})
+    emit(row)
+    return row
+
+
+def train_flash_grad_phase(smi) -> dict:
+    """qwen3-14b's training shape (B = 2, H = 40, KV = 8, S = 1,024, d =
+    128, causal) in both types, timed; a windowed case; llama-3.2-vision's
+    cross shape (512 queries over 1,600 patches, non-causal); the trainer's
+    shape (the 100m configuration's microbatch: B = 4, H = 12, KV = 4, S =
+    256, d = 64, causal; it trains in float32)."""
+    main = flash_grad_case("qwen3 train S=1024 causal", 2, 40, 8, 1024,
+                           1024, 128, causal=True, window=0, seed=50,
+                           smi=smi, timed=True)
+    flash_grad_case("S=1024 causal window=256", 1, 40, 8, 1024, 1024, 128,
+                    causal=True, window=256, seed=51, smi=smi)
+    flash_grad_case("cross llama-vision Sq=512 Sk=1600", 1, 32, 8, 512, 1600,
+                    128, causal=False, window=0, seed=52, smi=smi)
+    flash_grad_case("trainer 100m S=256 causal (12/4 heads, d=64)", 4, 12, 4,
+                    256, 256, 64, causal=True, window=0, seed=53, smi=smi)
+    return main
+
+
+def _params_differ(model, before, lr):
+    """(share of parameters not bit-identical to ``before`` (host copies),
+    the largest difference, the largest allowed: 2 lr plus one bf16 unit
+    of the largest entry)."""
+    n = differ = 0
+    worst = allowed = 0.0
+    for name, p in model.named_parameters():
+        b = before[name].to(p.device)
+        d = (p.detach().float() - b.float()).abs()
+        differ += int((d > 0).sum().item())
+        n += d.numel()
+        worst = max(worst, d.max().item())
+        allowed = max(allowed, 2 * lr + BF16_ROUND * b.float().abs().max()
+                      .item())
+        del b, d
+    return differ / n, worst, allowed
+
+
+def train_step_phase(smi) -> dict:
+    """``make_train_step`` on qwen3-14b at full width cut to 4 layers,
+    bf16, seed-0 weights drawn on the card, ``SyntheticLMData`` at seq
+    1,024 and global batch 4 in 2 microbatches under ``overlap="hybrid"``,
+    8 steps: every loss finite, step 8's below step 1's, flash launches per
+    step exact (4 layers x 2 microbatches x forward and remat recompute);
+    one ``serial`` step from the same start against hybrid's first; step
+    ms, tokens/s, ``train_mfu``, peak memory, AdamW ms and one profiled
+    step's device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train import StepConfig, make_eval_step, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+    data = SyntheticLMData(data_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+
+    # one serial step from the seed-0 start, its parameters kept on the host
+    model = init_params(cfg, seed=0, device=TRAIN_DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = adamw_init(model)
+    serial = make_train_step(cfg, opt_cfg, None, StepConfig(
+        microbatches=TRAIN_MICRO, overlap="serial"))
+    model, opt, m_serial = serial(model, opt, data.batch_at(0))
+    serial_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    serial_metrics = {k: float(v) for k, v in m_serial.items()}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+
+    # the main path: the hybrid step from the same start, 8 steps, the data
+    # through the prefetching iterator
+    model = init_params(cfg, seed=0, device=TRAIN_DEVICE)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, opt_cfg, None, StepConfig(
+        microbatches=TRAIN_MICRO, overlap="hybrid"))
+    held_out = data.batch_at(HELD_OUT_STEP)
+    evaluate = make_eval_step(cfg)
+    held_before = float(evaluate(model, held_out))
+    data.start(0)
+    it = iter(data)
+    losses, step_s, launches = [], [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            s, batch = next(it)
+            check(s == i, f"the data stream gave step {s} at step {i}")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            model, opt, metrics = step(model, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            launches.append(launch_counts())
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                hybrid_metrics = {k: float(v) for k, v in metrics.items()}
+                share, worst, allowed = _params_differ(model, serial_params,
+                                                       opt_cfg.lr)
+                del serial_params
+    finally:
+        data.stop()
+    peak = torch.cuda.max_memory_allocated()
+    held_after = float(evaluate(model, held_out))
+    want = TRAIN_LAYERS * TRAIN_MICRO * 2
+    for i, c in enumerate(launches):
+        check(c["flash_attention"] == want,
+              f"train step {i + 1}: {c['flash_attention']} flash launches, "
+              f"expected {want} (layers x microbatches x forward and remat)")
+        check(c["decode_attention"] == c["ssd_scan"] == c["tile_matmul"] == 0,
+              f"train step {i + 1}: launches of another kernel {c}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(held_after < held_before, f"the held-out loss did not fall: "
+          f"{held_before} -> {held_after}")
+    check(serial_metrics["loss"] == hybrid_metrics["loss"],
+          f"serial and hybrid step 1 losses differ: {serial_metrics} vs "
+          f"{hybrid_metrics}")
+    check(abs(serial_metrics["grad_norm"] - hybrid_metrics["grad_norm"])
+          <= 1e-5 * hybrid_metrics["grad_norm"],
+          f"serial and hybrid grad norms differ: {serial_metrics} vs "
+          f"{hybrid_metrics}")
+    check(share <= STEP_DIFF_SHARE and worst <= allowed,
+          f"serial vs hybrid parameters: {share:.3g} of them differ "
+          f"(limit {STEP_DIFF_SHARE}), by up to {worst} (limit {allowed})")
+
+    # one profiled step: device time by kernel, the busy share
+    batch = data.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        model, opt, _ = step(model, opt, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    rows = _device_rows(prof)
+    device_s = sum(r[0] for r in rows) / 1e6
+    check(device_s > 0, "the profiled train step shows no device work")
+
+    # AdamW alone, on float32 gradients of the accumulated step's layout
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=TRAIN_DEVICE)
+             for n, p in model.named_parameters()}
+    adamw_ms = device_ms(lambda: adamw_update(opt_cfg, model, grads, opt),
+                         reps=3)
+    del grads
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emb = model.embed.table.numel()
+    # model FLOPs: 6 N T over the parameters a token multiplies by (all but
+    # the embedding table, which is gathered), plus attention's QK^T and PV
+    # over the causal pairs, forward and backward (x3); remat not counted
+    attn = (3 * 4 * cfg.n_heads * cfg.head_dim * TRAIN_BATCH
+            * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 * cfg.n_layers)
+    model_flops = 6 * (n_params - emb) * tokens + attn
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    # the floor: the step's products at the bf16 peak, and the optimizer's
+    # bytes (bf16 p read and written, f32 gradient read, f32 m and v read
+    # and written) at the memory rate
+    floor_products_ms = model_flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    floor_opt_ms = n_params * (2 + 2 + 4 + 8 + 8) / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "train_step", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MICRO, "overlap": "hybrid",
+           "opt": TRAIN_OPT, "setup_s": setup_s, "losses": losses,
+           "held_out_loss": [held_before, held_after],
+           "step_s": step_s, "median_step_ms": med * 1e3,
+           "tokens_per_s": tokens / med, "model_flops": model_flops,
+           "train_mfu": model_flops / med / PEAK_FLOPS[torch.bfloat16],
+           "peak_memory_gb": peak / 1e9,
+           "flash_launches_per_step": launches[0]["flash_attention"],
+           "flash_launches": sum(c["flash_attention"] for c in launches),
+           "adamw_ms": adamw_ms, "floor_products_ms": floor_products_ms,
+           "floor_optimizer_ms": floor_opt_ms,
+           "serial_vs_hybrid": {"serial": serial_metrics,
+                                "hybrid": hybrid_metrics,
+                                "params_differ_share": share,
+                                "max_abs_diff": worst, "allowed": allowed},
+           "profiled_wall_s": prof_wall, "device_busy_s": device_s,
+           "device_busy_share": device_s / prof_wall,
+           "device_kernels": sum(r[2] for r in rows),
+           "top": [{"name": k[:80], "count": c, "device_ms": us / 1e3}
+                   for us, k, c in rows[:12]], "card": smi}
+    emit(row)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def trainer_phase(smi) -> dict:
+    """``Trainer`` on the card at the reference example's 100m
+    configuration (12 layers, d 768, vocab 32,768, float32), batch 8 of
+    256 tokens in 2 microbatches: 40 steps with a checkpoint every 20; a
+    ``request_preemption()`` at step 25 checkpoints and stops; a new
+    ``Trainer`` restores at 25, reads the stream from step 25 (each batch
+    equal to an uninterrupted stream's) and finishes at 40; the loss falls.
+    Checkpoint bytes and save seconds; flash launches exact."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (StepConfig, Trainer, TrainerConfig,
+                                   make_eval_step)
+    from repro_torch.train.train_lm import build_cfg
+
+    cfg = build_cfg("100m")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                          global_batch=8, seed=0)
+    saves = []
+    digests = []
+
+    def make():
+        tr = Trainer(cfg, AdamWConfig(**TRAINER_OPT),
+                     TrainerConfig(steps=TRAINER_STEPS,
+                                   ckpt_every=TRAINER_CKPT_EVERY,
+                                   ckpt_dir=ckpt_dir, log_every=5),
+                     data_cfg, step_cfg=StepConfig(microbatches=2,
+                                                   overlap="hybrid"),
+                     device=TRAIN_DEVICE)
+        inner = tr.step_fn
+
+        def step_fn(params, opt_state, batch):
+            digests.append(hashlib.sha256(
+                batch["tokens"].cpu().numpy().tobytes()).hexdigest())
+            if len(digests) == TRAINER_PREEMPT:
+                tr.request_preemption()
+            return inner(params, opt_state, batch)
+
+        tr.step_fn = step_fn
+        for name in ("save", "save_async"):
+            fn = getattr(tr.ckpt, name)
+
+            def timed(step, tree, extra=None, fn=fn, name=name):
+                t1 = time.perf_counter()
+                out = fn(step, tree, extra)
+                saves.append({"call": name, "step": step,
+                              "seconds": time.perf_counter() - t1})
+                return out
+            setattr(tr.ckpt, name, timed)
+        return tr
+
+    evaluate = make_eval_step(cfg)
+    held_out = SyntheticLMData(data_cfg).batch_at(HELD_OUT_STEP)
+    held_before = float(evaluate(init_params(cfg, seed=0,
+                                             device=TRAIN_DEVICE), held_out))
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = make().run()
+        check(first["preempted"] and first["final_step"] == TRAINER_PREEMPT,
+              f"the preempted run ended at {first['final_step']}, "
+              f"preempted={first['preempted']}")
+        second = make()
+        _, _, start = second.init_or_restore()
+        check(start == TRAINER_PREEMPT, f"restored at {start}, expected "
+              f"{TRAINER_PREEMPT}")
+        out = second.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["flash_attention"]
+        step_dir = os.path.join(ckpt_dir, f"step_{TRAINER_STEPS:08d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(out["final_step"] == TRAINER_STEPS and not out["preempted"],
+          f"the resumed run ended at {out['final_step']}")
+    fresh = SyntheticLMData(data_cfg)
+    want = [hashlib.sha256(fresh.batch_at(s)["tokens"].tobytes()).hexdigest()
+            for s in range(TRAINER_STEPS)]
+    check(digests == want, "the resumed stream's batches differ from an "
+          "uninterrupted stream's")
+    want_launches = cfg.n_layers * 2 * 2 * TRAINER_STEPS
+    check(launches == want_launches, f"trainer: {launches} flash launches, "
+          f"expected {want_launches}")
+    losses = [m["loss"] for m in first["metrics"] + out["metrics"]]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the trainer's loss did not fall: "
+          f"{losses}")
+    held_after = float(evaluate(out["params"], held_out))
+    check(held_after < held_before, f"the trainer's held-out loss did not "
+          f"fall: {held_before} -> {held_after}")
+    row = {"phase": "trainer", "config": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(p.numel() for p in out["params"].parameters()),
+           "steps": TRAINER_STEPS,
+           "preempted_at": first["final_step"], "restored_at": start,
+           "final_step": out["final_step"],
+           "losses": [(m["step"], m["loss"]) for m in
+                      first["metrics"] + out["metrics"]],
+           "held_out_loss": [held_before, held_after], "opt": TRAINER_OPT,
+           "flash_launches": launches, "checkpoint_bytes": ckpt_bytes,
+           "saves": saves, "wall_s": wall, "card": smi}
+    emit(row)
+    return row
+
+
+def reference_init_(model, cfg, seed: int = 0) -> None:
+    """Redraw the port's ``LM`` as a draw of the reference's
+    initialisation: ``repro/models/layers.py::materialize`` applied to the
+    reference's shapes, where each block leaf is stacked over the layers.
+    A leaf of rank >= 2 there is a truncated normal on [-2, 2] times
+    1/sqrt(fan_in), fan_in being its second-to-last dimension at rank 2 and
+    the product of all but the last beyond: so a block's norm scale, (L, d)
+    stacked, is drawn at fan-in L, and a block matrix at L times the
+    layer's fan-in.  Other 1-D leaves are ones if named ``norm*``,
+    ``gamma*`` or ``scale``, else zeros (the final norm's scale among
+    them)."""
+    stacks = {"blocks": cfg.n_layers, "enc_blocks": cfg.enc_layers}
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            stack = stacks.get(name.split(".", 1)[0])
+            shape = ((stack,) if stack else ()) + tuple(p.shape)
+            if len(shape) >= 2:
+                fan_in = shape[-2] if len(shape) == 2 else math.prod(shape[:-1])
+                x = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+                torch.nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0,
+                                            b=2.0, generator=gen)
+                p.copy_(x.mul_(1.0 / math.sqrt(fan_in)))
+            elif leaf.startswith(("norm", "gamma")) or leaf == "scale":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def trainer_lr_witness_phase(smi) -> dict:
+    """The trainer's configuration (100m, batch 8 of 256 in 2 microbatches)
+    at the reference example's schedule, 3e-3 after 20 warmup steps, for
+    40 steps from seed-0 starts: the port's initialisation (norm scales of
+    one, per-layer fan-in) under ``hybrid`` and under ``serial``, and a draw
+    of the reference's (:func:`reference_init_`) under ``hybrid``.
+    Per-step losses and a held-out batch's loss before and after, each
+    finite.  ``tests/torch_lr_witness.py`` holds the two packages against
+    each other from one tree on the CPU."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import StepConfig, make_eval_step, make_train_step
+    from repro_torch.train.train_lm import build_cfg
+
+    cfg = build_cfg("100m")
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                      global_batch=8, seed=0))
+    held_out = data.batch_at(HELD_OUT_STEP)
+    evaluate = make_eval_step(cfg)
+    row = {"phase": "trainer_lr_witness", "config": cfg.name,
+           "layers": cfg.n_layers, "opt": EXAMPLE_OPT, "card": smi}
+    for init, overlap in (("port", "hybrid"), ("port", "serial"),
+                          ("reference", "hybrid")):
+        step = make_train_step(cfg, AdamWConfig(**EXAMPLE_OPT), None,
+                               StepConfig(microbatches=2, overlap=overlap))
+        model = init_params(cfg, seed=0, device=TRAIN_DEVICE)
+        if init == "reference":
+            reference_init_(model, cfg)
+        opt = adamw_init(model)
+        before = float(evaluate(model, held_out))
+        losses = []
+        for s in range(TRAINER_STEPS):
+            model, opt, metrics = step(model, opt, data.batch_at(s))
+            losses.append(float(metrics["loss"]))
+        after = float(evaluate(model, held_out))
+        check(all(math.isfinite(x) for x in losses + [before, after]),
+              f"lr witness, {init} init, {overlap}: losses {losses}, "
+              f"held-out {before} -> {after}")
+        row[f"{init}_init_{overlap}"] = {"losses": losses,
+                                         "held_out_loss": [before, after]}
+        del model, opt
+    emit(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def factor(session, a, tile: int):
     """One main-path run: returns (L, report, enqueue seconds, synchronised
     wall seconds, launches, task count)."""
@@ -2339,6 +2944,10 @@ def main() -> int:
                0, seed=41, H=32, KV=8)
     flash_case("prefill seamless decoder S=16 causal d=64", 16, 0, seed=42,
                H=16, KV=16, d=64)
+    # the trainer's attention (the 100m configuration's microbatch of 4,
+    # 12/4 heads at d = 64, S = 256, causal), which trains in float32
+    flash_case("trainer 100m S=256 causal (12/4 heads, d=64)", 256, 0,
+               seed=44, B=4, H=12, KV=4, d=64, time_float32=True)
     # needles: the weight on key Sk - 1; every real key far below zero with
     # needles stored past Sk, which must stay out of the sum
     flash_case(f"cross Sq={PROMPT} Sk=1600 needle on the last key", PROMPT, 0,
@@ -2461,6 +3070,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # training: flash attention's gradient, the train step at full width,
+    # the trainer with a preemption and a restart
+    flash_train = train_flash_grad_phase(smi)
+    train_row = train_step_phase(smi)
+    trainer_row = trainer_phase(smi)
+    trainer_lr_witness_phase(smi)
+
     def line(name, case, launches):
         return {"name": name, "route": "cuda",
                 "source": f"{CSRC}/{name}.cu", "replaces": REPLACES[name],
@@ -2494,12 +3110,20 @@ def main() -> int:
     decode["launches_by_path"] = decode_by_path
     # the sharded serve (zamba2-7b) in the children, beside each kernel's
     # single-process serving path
+    # training: the train step's 8 steps, the trainer's 40 (each step's
+    # forward and its remat recompute launch the kernel)
     flash_by_path = {"serving": qwen["flash_attention_launches"],
                      "serving_mp": serving_mp["flash_attention"],
                      **{k: r["flash_attention_launches"]
-                        for k, r in new_paths.items()}}
+                        for k, r in new_paths.items()},
+                     "train_step": train_row["flash_launches"],
+                     "trainer": trainer_row["flash_launches"]}
     flash = line("flash_attention", flash_main, sum(flash_by_path.values()))
     flash["launches_by_path"] = flash_by_path
+    # the forward + backward pair at qwen3's training shape (bf16)
+    flash["train_pair"] = {k: flash_train[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "forward_ms", "max_abs_err")}
     scan_by_path = {"serving": batch_rows["zamba2-7b"]["ssd_scan_launches"],
                     "serving_mp": serving_mp["ssd_scan"]}
     scan = line("ssd_scan", ssd_main, sum(scan_by_path.values()))

@@ -12,10 +12,14 @@ CUDA device::
         report = s.run(g)
     assert report[b] == 42
 
-Tensor-making entry points (:mod:`repro_torch.linalg`) default to the CUDA
-device and raise when there is none; pass ``device="cpu"`` to run on the
-host.  ``import repro_torch`` pulls in no torch; the kernels and linalg
-subpackages do.
+Tensor-making entry points (:mod:`repro_torch.linalg`, ``models``,
+``train``, ``checkpoint``) default to the CUDA device and raise when there
+is none; pass ``device="cpu"`` to run on the host.  Beside the
+factorizations and serving, the port trains: :mod:`repro_torch.optim`
+(AdamW), :mod:`repro_torch.data` (the synthetic stream),
+:mod:`repro_torch.checkpoint` and :mod:`repro_torch.train` (train steps
+and the fault-tolerant trainer).  ``import repro_torch`` pulls in no
+torch; the kernels, linalg, models and training subpackages do.
 """
 
 from .api import Graph, Plan, PlanError, RunReport, Session, TaskHandle

@@ -32,7 +32,7 @@ from typing import Dict, Iterable, Iterator
 
 __all__ = ["BUILD_DIR", "BuildError", "LaunchCounter", "add_launches",
            "build", "capturing_launches", "load", "library_path",
-           "require_aligned"]
+           "refuse_grad", "require_aligned"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: ``<checkout>/build/kernels`` (listed in .gitignore)
@@ -111,6 +111,23 @@ def require_aligned(name: str, t, dims, copy: str, align: int = 16) -> None:
                 f"({t.stride(dim) * item} bytes) is not a multiple of {align} "
                 f"bytes; {copy} reads it in place and needs that alignment "
                 f"(the wrapper copies nothing)")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would drop a gradient: it
+    launches on raw pointers, so its output carries no autograd history.
+    Checked before dispatch, so the CPU's plain version refuses alike;
+    under ``torch.no_grad()`` (every serving and factorization path) or on
+    tensors that do not require grad, it passes."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its kernel's output would carry no "
+            f"gradient to inputs that require one; call it under "
+            f"torch.no_grad() or on detached tensors (only flash_attention "
+            f"is differentiable, through FlashAttentionFn)")
 
 
 def nvcc_path() -> str:

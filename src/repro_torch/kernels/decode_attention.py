@@ -144,6 +144,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q ``(B, H, d)`` over ``k/v[:, :length]`` ``(B, S, KV,
     d)``; with ``window > 0`` only the last ``window`` positions."""
     B, H, KV, S, d = _check(q, k, v, length, window)
+    cuda_lib.refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, int(length), window=int(window))
     if q.device.type != "cuda":

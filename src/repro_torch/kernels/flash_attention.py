@@ -22,23 +22,33 @@ without the causal mask (cross-attention: ``Sq`` prompt positions over
 ``Sq != Sk`` (a prefill that continues a cache) raise
 ``NotImplementedError`` (ROADMAP Queue B item 3).
 
+Gradients: every call goes through :class:`FlashAttentionFn`, whose
+forward is the launch (or plain version) and whose backward is
+:func:`flash_attention_bwd`, written in torch ops; autograd records it only
+when grad mode is on and q, k or v requires grad, so serving's calls carry
+no history.  The reference has no backward kernel either: its training
+differentiates ``layers._chunked_attn`` with ``jax.grad``.
+
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` and the body of ``repro/models/layers.py::_chunked_attn``
-as ``attention`` calls it for prefill, for the encoder (``causal=False``)
-and for cross-attention (``memory=``).
+as ``attention`` calls it for prefill, for training's forward, for the
+encoder (``causal=False``) and for cross-attention (``memory=``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import numbers
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import cuda_lib
 from .ref import flash_attention_ref
 
-__all__ = ["MAX_HEAD_DIM", "flash_attention", "launches"]
+__all__ = ["BWD_BLOCK", "FlashAttentionFn", "MAX_HEAD_DIM", "flash_attention",
+           "flash_attention_bwd", "launches"]
 
 #: launches of the CUDA kernel (CPU calls do not count)
 launches = cuda_lib.LaunchCounter("flash_attention")
@@ -47,6 +57,9 @@ launches = cuda_lib.LaunchCounter("flash_attention")
 #: and a bfloat16 head is at most four 64-column panels
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
+#: query rows per block of the backward: its float32 scores, probabilities
+#: and their gradients take O(BWD_BLOCK * Sk) per head
+BWD_BLOCK = 512
 _fn = None
 
 
@@ -117,7 +130,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """Attention of q ``(B, H, Sq, d)`` over k/v ``(B, KV, Sk, d)``
     (``Sq == Sk`` when ``causal``); returns a new contiguous ``(B, H, Sq,
-    d)`` tensor."""
+    d)`` tensor, through :class:`FlashAttentionFn`, which carries a
+    gradient back to q, k or v where one is to flow."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+
+
+def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors, the plain version on CPU ones."""
     B, H, KV, S, Sk, d = _check(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=int(window))
@@ -146,3 +165,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"Sk={Sk}, d={d}, {q.dtype})")
     launches.add()
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the forward is the kernel's launch
+    (the plain version on CPU tensors), which it counts like any launch;
+    the backward is :func:`flash_attention_bwd` from the saved q, k, v and
+    output.  Under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass, and that launch counts too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = _forward(q, k, v, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = bool(causal), int(window)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """The gradient of :func:`flash_attention` in torch ops: returns ``(dq,
+    dk, dv)`` in the types of q, k and v for the output gradient ``dout``
+    ``(B, H, Sq, d)`` (any strides) at the forward's ``out``.
+
+    The counterpart of what ``jax.grad`` computes through the reference's
+    ``_chunked_attn``, which no Pallas kernel differentiates.  Query rows go
+    in blocks of at most :data:`BWD_BLOCK`; each block recomputes its
+    scores over the keys its rows can see (with ``causal`` none past the
+    block's last row, with ``window`` none ``window`` or more behind its
+    first) and a float32 softmax P (float64 for float64 inputs), then forms
+    dV += Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(dO ⊙ O)), dQ = dS·K·s
+    and dK += dSᵀ·Q·s at scale ``s = 1/sqrt(d)``.  The query heads of a KV
+    group share their KV head, so dK and dV sum over the group.  Memory
+    is O(BWD_BLOCK · Sk) per head.
+
+    ``out`` enters only through rowsum(dO ⊙ O): the bfloat16 kernel rounds
+    p to bfloat16 before P·V (``chip_smoke.FLASH_P_ROUND``) and its output
+    once more, so its O, and through it dS, differs from the float32
+    forward's by that rounding, while P here is float32."""
+    B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    rep = H // KV
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    kf, vf = k.to(acc), v.to(acc)
+    dq = torch.empty((B, H, S, d), dtype=acc, device=dev)
+    dk = torch.zeros((B, KV, Sk, d), dtype=acc, device=dev)
+    dv = torch.zeros((B, KV, Sk, d), dtype=acc, device=dev)
+    for q0 in range(0, S, BWD_BLOCK):
+        q1 = min(S, q0 + BWD_BLOCK)
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        hi = min(Sk, q1) if causal else Sk
+        n = q1 - q0
+
+        def rows(t):                      # (B, KV, rep, n, d) in acc
+            return t[:, :, q0:q1].to(acc).reshape(B, KV, rep, n, d)
+
+        qb, ob, dob = rows(q), rows(out), rows(dout)
+        kb, vb = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qb, kb) * scale
+        qpos = torch.arange(q0, q1, device=dev)[:, None]
+        kpos = torch.arange(lo, hi, device=dev)[None, :]
+        mask = torch.ones((n, hi - lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos >= kpos
+        if window > 0:
+            mask &= qpos - kpos < window
+        s = s.masked_fill(~mask, -math.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m)
+        p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        del s
+        dv[:, :, lo:hi] += torch.einsum("bgrqk,bgrqd->bgkd", p, dob)
+        dp = torch.einsum("bgrqd,bgkd->bgrqk", dob, vb)
+        ds = p * (dp - (dob * ob).sum(dim=-1, keepdim=True))
+        del p, dp
+        dq[:, :, q0:q1] = (torch.einsum("bgrqk,bgkd->bgrqd", ds, kb)
+                           * scale).reshape(B, H, n, d)
+        dk[:, :, lo:hi] += torch.einsum("bgrqk,bgrqd->bgkd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -34,7 +34,7 @@ def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor,
 
 def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
-    """``softmax(s) @ v`` over the unmasked keys, in float32.  A row with
+    """``softmax(s) @ v`` over the unmasked keys, in ``s``'s type.  A row with
     no unmasked key gives zeros (the Pallas kernels' finite ``NEG_INF`` and
     ``max(l, 1e-30)`` divide), not the NaN of a softmax over ``-inf``."""
     s = s.masked_fill(~mask, -math.inf)
@@ -42,7 +42,7 @@ def _masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)                       # masked: exp(-inf) = 0
     l = p.sum(dim=-1, keepdim=True)
-    return (p @ v.float()) / l.clamp_min(1e-30)
+    return (p @ v.to(s.dtype)) / l.clamp_min(1e-30)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,7 +51,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Prefill attention: q ``(B, H, Sq, d)``; k/v ``(B, KV, Sk, d)`` with
     query head ``h`` reading KV head ``h // (H // KV)``; returns
     ``(B, H, Sq, d)`` in q's dtype.  Scores, softmax and the ``p @ v``
-    product are float32, at scale ``1/sqrt(d)``; ``causal`` keeps keys at
+    product are float32 (float64 for float64 inputs, which the gradient
+    tests differentiate), at scale ``1/sqrt(d)``; ``causal`` keeps keys at
     or before the query, ``window > 0`` keeps keys less than ``window``
     positions behind it.  Query ``i`` and key ``j`` sit at positions ``i``
     and ``j``; the lengths may differ without ``causal`` (the encoder's
@@ -64,7 +65,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rep = H // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) / math.sqrt(d)
     qpos = torch.arange(S, device=q.device)
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device)

@@ -153,6 +153,7 @@ def ssd_scan(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
     """The SSD chunk scan: returns ``(y (B, nc, L, H, P), final_state (B,
     H, N, P))``."""
     B, nc, L, H, P, N = _check(xdt, cs, Bm, Cm)
+    cuda_lib.refuse_grad("ssd_scan", xdt, cs, Bm, Cm)
     if xdt.device.type == "cpu":
         return ssd_scan_ref(xdt, cs, Bm, Cm)
     if xdt.device.type != "cuda":

@@ -113,6 +113,7 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor,
     """``out = beta * c + alpha * a @ op(b)``; returns ``out`` (allocated
     when not given; ``out=c`` updates C in place)."""
     M, N, K = _check(a, b, c, out, trans_b)
+    cuda_lib.refuse_grad("tile_matmul", a, b, c)
     if a.device.type == "cpu":
         res = tile_matmul_ref(a, b, c, alpha=alpha, beta=beta, trans_b=trans_b)
         return res if out is None else out.copy_(res)

@@ -2,21 +2,26 @@
 Mamba2 (SSD) block, the models of all six families (dense, moe, ssm,
 hybrid, encdec, vlm), and the decode-step serving graphs.
 
-The reference's sharding and training names (``param_pspecs``,
-``cache_pspecs``, ``loss_fn``, ``forward``, ``abstract_params``) wait for
-the training slice (ROADMAP Queue A item 11).
+The training names ``forward``, ``loss_fn``, ``sharded_ce_loss`` and
+``abstract_params`` run the dense, moe, encdec and vlm families (the ssm
+and hybrid families wait for ROADMAP Queue A item A11b); the sharding
+names (``param_pspecs``, ``cache_pspecs``) wait for item 12.
 """
 
 from .config import ModelConfig
 from .lm import (
     LM,
+    abstract_params,
     cache_struct,
     decode_step,
+    forward,
     init_params,
+    loss_fn,
     model_spec,
     n_attn_slots,
     params_from_reference,
     prefill,
+    sharded_ce_loss,
     zeros_cache,
 )
 from .ssm import SSM, ssd_chunked, ssm_state_spec
@@ -43,12 +48,16 @@ __all__ = [
     "SSM",
     "ssd_chunked",
     "ssm_state_spec",
+    "abstract_params",
     "cache_struct",
     "decode_step",
+    "forward",
     "init_params",
+    "loss_fn",
     "model_spec",
     "n_attn_slots",
     "params_from_reference",
     "prefill",
+    "sharded_ce_loss",
     "zeros_cache",
 ]

@@ -21,6 +21,13 @@ which is the reference's ``_chunked_attn(causal=False)`` at one query.  On
 CPU tensors both take their plain versions.  The large products (``x @
 wq``, the MLP, the experts' products) stay ``torch.matmul``/``torch.bmm``,
 as the reference leaves them to XLA.
+
+Parameters are made with ``requires_grad=False``, which serving keeps;
+training turns them on with ``model.requires_grad_(True)``.  Every path
+of a training step (the cache-less and memory branches of
+:class:`Attention`, the MLP, the MoE's capacity slots) is then
+differentiable: flash attention through its autograd Function.  Decode
+attention has no backward and refuses inputs that require grad.
 """
 
 from __future__ import annotations
@@ -59,10 +66,12 @@ def materialize_(module: nn.Module, generator: torch.Generator) -> None:
     are ones and other 1-D leaves zeros.  Each leaf is drawn on its own
     device, so a full-width model never passes through the host.
 
-    One difference: the reference matches scales by the prefixes
-    ``norm``/``gamma`` only, so its ``ln1``, ``ln2`` and ``final_norm``
-    start at zero, which zeroes every block's input and every logit of a
-    fresh model.  Here they start at one (ROADMAP Queue C)."""
+    Two differences (ROADMAP Queue C).  The reference matches scales by
+    the prefixes ``norm``/``gamma`` only, so its ``final_norm`` starts at
+    zero, which zeroes every logit of a fresh model; here scales start at
+    one.  And the reference draws each block leaf stacked over the layers:
+    its block norm scales, (layers, d), as matrices at fan-in ``layers``,
+    and its block matrices at ``layers`` times the fan-in used here."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.dim() >= 2:
@@ -80,6 +89,8 @@ def materialize_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised leaf that serving leaves frozen; training turns it
+    on with ``model.requires_grad_(True)``."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

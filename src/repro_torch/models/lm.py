@@ -30,6 +30,9 @@ Entry points:
 
 * ``init_params(cfg, seed, device=None)``      -> :class:`LM`
 * ``params_from_reference(cfg, tree, device)`` -> :class:`LM`
+* ``abstract_params(cfg)``                     -> :class:`LM` on ``meta``
+* ``forward(params, cfg, batch, ctx=None, remat=True)`` -> final hidden
+* ``loss_fn(params, cfg, batch, ctx=None, remat=True)`` -> scalar CE loss
 * ``zeros_cache(cfg, batch, max_len, device=None)`` -> decode cache
 * ``prefill(params, cfg, batch, ctx=None, max_len=0)`` -> (cache, logits)
 * ``decode_step(params, cfg, cache, tokens, ctx=None)`` -> (cache, logits)
@@ -39,9 +42,15 @@ when there is none; pass ``device="cpu"`` to run on the host.
 
 The cross-attending families keep their memory (the encoder's output, or
 the patches) in the decode cache as ``"memory"``; a decode step projects it
-through each cross layer's ``wk``/``wv`` again, as the reference does.  The
-training entry points (``forward``, ``loss_fn``) are not here (ROADMAP
-Queue A item 11).
+through each cross layer's ``wk``/``wv`` again, as the reference does.
+
+Training (``forward``, ``loss_fn``) runs the dense, moe, encdec and vlm
+families; gradients flow once the parameters require grad
+(``params.requires_grad_(True)``).  ``remat=True``, the reference's
+default, checkpoints each block with ``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint(nothing_saveable)``: its activations are
+recomputed in the backward pass.  The ssm and hybrid families raise
+(ROADMAP Queue A item A11b: the SSD scan has no backward yet).
 """
 
 from __future__ import annotations
@@ -51,16 +60,18 @@ from typing import Any, Dict, List, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..linalg.tiles import resolve_device
 from . import layers as L
 from .config import ModelConfig
 from .ssm import SSM, ssm_spec, ssm_state_spec
 
-__all__ = ["LM", "SSMBlock", "block_spec", "cache_struct", "decode_step",
-           "init_params", "layer_flags", "logits_from_hidden", "model_spec",
-           "n_attn_slots", "padded_vocab", "params_from_reference", "prefill",
-           "zeros_cache"]
+__all__ = ["LM", "SSMBlock", "abstract_params", "block_spec", "cache_struct",
+           "decode_step", "forward", "init_params", "layer_flags",
+           "logits_from_hidden", "loss_fn", "model_spec", "n_attn_slots",
+           "padded_vocab", "params_from_reference", "prefill",
+           "sharded_ce_loss", "zeros_cache"]
 
 Device = Union[str, torch.device, None]
 
@@ -267,6 +278,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return model
 
 
+def abstract_params(cfg: ModelConfig) -> LM:
+    """The :class:`LM`'s parameters as shapes and dtypes only: the model
+    built on the ``meta`` device, which holds no storage (the reference's
+    tree of ``ShapeDtypeStruct``)."""
+    return LM(cfg, torch.device("meta"))
+
+
 @torch.no_grad()
 def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
                           device: Device = None) -> LM:
@@ -312,12 +330,16 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     return model
 
 
+def _unembedding(params: LM, cfg: ModelConfig) -> torch.Tensor:
+    """``unembed.out``, or ``embed.table.T`` with tied embeddings."""
+    return (params.unembed.out if not cfg.tie_embeddings
+            else params.embed.table.T)
+
+
 def logits_from_hidden(params: LM, cfg: ModelConfig,
                        h: torch.Tensor) -> torch.Tensor:
     """``h @ unembed.out``, or ``h @ embed.table.T`` with tied embeddings."""
-    wout = (params.unembed.out if not cfg.tie_embeddings
-            else params.embed.table.T)
-    return h @ wout
+    return h @ _unembedding(params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -425,22 +447,40 @@ def _ssm_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
-def _encode(params: LM, cfg: ModelConfig,
-            enc_input: torch.Tensor) -> torch.Tensor:
+def _block_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """One block's output without the K/V it also returns."""
+    return blk(x, **kw)[0]
+
+
+def _run_block(blk: nn.Module, x: torch.Tensor, remat: bool,
+               **kw) -> torch.Tensor:
+    """``blk(x, **kw)``'s output; with ``remat`` while grad is on, under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``): only the block's input is kept, and its forward
+    runs again in the backward pass."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(_block_out, blk, x, use_reentrant=False, **kw)
+    return _block_out(blk, x, **kw)
+
+
+def _encode(params: LM, cfg: ModelConfig, enc_input: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
     """The encoder (the reference's ``lm._encode``): every ``enc_blocks``
     layer over ``enc_input`` ``(B, S_src, D)``, full (non-causal)
     self-attention with rope at ``cfg.rope_theta`` over the source
-    positions, then the MLP; no final norm."""
+    positions, then the MLP; no final norm.  ``remat`` checkpoints each
+    layer when grad is on."""
     positions = torch.arange(enc_input.shape[1],
                              device=enc_input.device)[None, :]
     tables = L.rope_tables(positions, cfg.rope_theta, cfg.head_dim)
     x = enc_input
     for blk in params.enc_blocks:
-        x, _ = blk(x, window=0, rope_cs=tables, causal=False)
+        x = _run_block(blk, x, remat, window=0, rope_cs=tables, causal=False)
     return x
 
 
-def _memory(params: LM, cfg: ModelConfig, batch: Dict[str, Any]):
+def _memory(params: LM, cfg: ModelConfig, batch: Dict[str, Any], *,
+            remat: bool = True):
     """The memory the decoder cross-attends to, in the model's dtype: the
     encoder's output over ``batch["enc_input"]`` (encdec) or
     ``batch["patches"]`` (vlm); None for the other families."""
@@ -452,7 +492,76 @@ def _memory(params: LM, cfg: ModelConfig, batch: Dict[str, Any]):
                          f"(B, S, d_model)")
     src = torch.as_tensor(batch[key], device=params.device,
                           dtype=cfg.torch_dtype)
-    return _encode(params, cfg, src) if key == "enc_input" else src
+    if key == "enc_input":
+        return _encode(params, cfg, src, remat=remat)
+    return src
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (training and scoring)
+# ---------------------------------------------------------------------------
+def _no_ssm_training(cfg: ModelConfig) -> None:
+    if cfg.family in _SSM_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported to "
+            f"repro_torch yet: the SSD scan has no backward; see ROADMAP "
+            f"Queue A item A11b")
+
+
+def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
+            *, remat: bool = True) -> torch.Tensor:
+    """The final hidden states ``(B, S, d_model)`` of ``batch["tokens"]``
+    ``(B, S)`` (plus an encdec's ``"enc_input"`` or a vlm's ``"patches"``),
+    after the final norm: the reference's ``lm.forward``.  Runs under
+    whatever grad mode the caller set; ``remat`` checkpoints each block
+    (and encoder layer) when grad is on.  The ssm and hybrid families
+    raise ``NotImplementedError`` (ROADMAP Queue A item A11b)."""
+    _no_ctx(ctx)
+    _no_ssm_training(cfg)
+    dev = params.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    Sq = tokens.shape[1]
+    x = params.embed.table[tokens]
+    positions = torch.arange(Sq, device=dev)[None, :]
+    flags = layer_flags(cfg)
+    tables = _rope_by_theta(cfg, flags, positions)
+    memory = _memory(params, cfg, batch, remat=remat)
+    cross = _cross_layers(cfg)
+    for i, blk in enumerate(params.blocks):
+        x = _run_block(blk, x, remat, window=flags["window"][i],
+                       rope_cs=tables[flags["theta"][i]],
+                       memory=memory if cross[i] else None)
+    return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+
+
+def sharded_ce_loss(h: torch.Tensor, wout: torch.Tensor,
+                    labels: torch.Tensor, cfg: ModelConfig,
+                    ctx=None) -> torch.Tensor:
+    """Token-mean cross entropy of the logits ``h @ wout``, in float32, the
+    reference's ``sharded_ce_loss`` without a mesh (``ctx is None``; a
+    context raises, ROADMAP Queue A item 12): the padded vocabulary's
+    columns are masked to -inf, and labels < 0 are masked out of the
+    mean."""
+    _no_ctx(ctx)
+    logits = (h @ wout).float()
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = logits.masked_fill(col >= cfg.vocab_size, -torch.inf)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    mask = labels >= 0
+    loss = torch.where(mask, lse - picked, torch.zeros_like(lse))
+    return loss.sum() / mask.sum().clamp_min(1)
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
+            *, remat: bool = True) -> torch.Tensor:
+    """The scalar float32 loss of ``batch`` (``"tokens"``, ``"labels"``
+    ``(B, S)``, labels < 0 masked): :func:`forward` then
+    :func:`sharded_ce_loss` through ``unembed.out`` (or the tied
+    embedding's transpose)."""
+    h = forward(params, cfg, batch, ctx, remat=remat)
+    labels = torch.as_tensor(batch["labels"], device=h.device)
+    return sharded_ce_loss(h, _unembedding(params, cfg), labels, cfg, ctx)
 
 
 @torch.no_grad()

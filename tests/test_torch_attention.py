@@ -12,8 +12,16 @@ themselves are checked against the plain versions on the card by
 
 Inputs come from ``numpy.random.default_rng(seed)``.  float32 uses
 ``tests/test_kernels.py``'s kernel tolerance, ``rtol = atol = 2e-5``.
+
+Gradients: ``flash_attention_bwd`` (the backward of ``FlashAttentionFn``,
+in torch ops) against ``torch.autograd`` through ``flash_attention_ref``
+in float64, where the two compute the same sums in another order (``rtol
+= atol = 1e-10``), and against ``jax.grad`` of ``_chunked_attn`` in
+float32 (the kernel tolerance again); the kernels without a backward
+refuse inputs that require grad.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +32,9 @@ from repro.kernels import ref as jax_ref
 from repro.models import layers as jax_layers
 from repro_torch.kernels import launch_counts, ops
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (BWD_BLOCK, FlashAttentionFn,
+                                                 flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -117,6 +127,108 @@ def test_flash_wrapper_refuses_what_prefill_does_not_call():
         flash_attention(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q.double(), q.double(), q.double())
+
+
+# ---------------------------------------------------------------------------
+# prefill gradients: FlashAttentionFn and flash_attention_bwd
+#
+# (B, H, KV, Sq, Sk, d, causal, window): causal, windowed, grouped heads
+# (4 / 2), non-causal Sq != Sk both ways, and lengths that are not a
+# multiple of BWD_BLOCK (600 and 530 span two blocks, the second ragged)
+GRAD_CASES = [(2, 4, 2, 600, 600, 16, True, 0),
+              (1, 4, 2, 600, 600, 16, True, 100),
+              (1, 4, 4, 77, 77, 8, True, 0),
+              (2, 4, 2, 70, 530, 8, False, 0),
+              (1, 4, 2, 530, 41, 8, False, 0),
+              (1, 2, 1, 37, 37, 8, True, 5)]
+F64_GRAD_TOL = dict(rtol=1e-10, atol=1e-10)
+
+
+def _grad_inputs(rng, B, H, KV, Sq, Sk, d, dtype=np.float64):
+    q = rng.standard_normal((B, H, Sq, d)).astype(dtype)
+    k, v = (rng.standard_normal((B, KV, Sk, d)).astype(dtype)
+            for _ in range(2))
+    dout = rng.standard_normal((B, H, Sq, d)).astype(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,causal,window", GRAD_CASES)
+def test_flash_bwd_matches_autograd_of_the_plain_version_in_float64(
+        B, H, KV, Sq, Sk, d, causal, window):
+    assert max(Sq, Sk) < 2 * BWD_BLOCK
+    rng = np.random.default_rng(11)
+    q, k, v, dout = (_t(x) for x in _grad_inputs(rng, B, H, KV, Sq, Sk, d))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_ref(*leaves, causal=causal, window=window)
+    expect = torch.autograd.grad(out, leaves, dout)
+    got = flash_attention_bwd(q, k, v, out.detach(), dout, causal=causal,
+                              window=window)
+    for name, g, e in zip("qkv", got, expect):
+        assert g.dtype == torch.float64 and g.shape == e.shape, name
+        np.testing.assert_allclose(g.numpy(), e.numpy(), **F64_GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,causal,window", GRAD_CASES)
+def test_flash_gradients_match_jax_grad_of_chunked_attn(B, H, KV, Sq, Sk, d,
+                                                         causal, window):
+    """The wrapper with grad on (``FlashAttentionFn`` on CPU tensors)
+    against ``jax.grad`` of ``layers._chunked_attn`` in its (B, S, heads,
+    hd) layout, for the same output gradient, in float32.  A transposed
+    ``dout`` also checks a non-contiguous output gradient."""
+    rng = np.random.default_rng(12)
+    q, k, v, dout = _grad_inputs(rng, B, H, KV, Sq, Sk, d, np.float32)
+    tr = lambda x: np.ascontiguousarray(x.transpose(0, 2, 1, 3))  # noqa: E731
+
+    def f(qj, kj, vj):
+        out = jax_layers._chunked_attn(qj, kj, vj, causal=causal,
+                                       window=window, q_offset=0)
+        return jnp.sum(out * jnp.asarray(tr(dout)))
+
+    expect = jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(tr(q)), jnp.asarray(tr(k)), jnp.asarray(tr(v)))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, window=window)
+    assert out.grad_fn is not None and "FlashAttentionFn" in type(
+        out.grad_fn).__name__
+    out.backward(_t(tr(dout)).transpose(1, 2))
+    for name, t, e in zip("qkv", leaves, expect):
+        np.testing.assert_allclose(t.grad.transpose(1, 2).numpy(),
+                                   np.asarray(e), **TOL, err_msg=f"d{name}")
+
+
+def test_flash_with_grad_gives_the_no_grad_calls_bits():
+    """The Function's forward is the same call: the output is bit-identical
+    to the direct one's, which carries no history; CPU calls count no
+    launch either way."""
+    rng = np.random.default_rng(13)
+    q, k, v, _ = (_t(x) for x in _grad_inputs(rng, 2, 4, 2, 70, 70, 16,
+                                              np.float32))
+    before = launch_counts()
+    plain = flash_attention(q, k, v, causal=True, window=9)
+    assert plain.grad_fn is None
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    tracked = flash_attention(*leaves, causal=True, window=9)
+    assert torch.equal(tracked.detach(), plain)
+    direct = FlashAttentionFn.apply(*leaves, True, 9, 0)
+    assert torch.equal(direct.detach(), plain)
+    with torch.no_grad():
+        assert flash_attention(*leaves, causal=True, window=9).grad_fn is None
+    assert launch_counts() == before
+
+
+def test_decode_attention_refuses_inputs_that_require_grad():
+    """No backward: with grad on, a q, k or v that requires grad raises
+    before the device dispatch (the same on either device); under
+    ``no_grad`` the call runs."""
+    q = torch.zeros(1, 2, 8)
+    kv = torch.zeros(1, 6, 1, 8)
+    for args in ((q.requires_grad_(), kv, kv),
+                 (q.detach(), kv.clone().requires_grad_(), kv)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            decode_attention(*args, 3)
+        with torch.no_grad():
+            assert decode_attention(*args, 3).shape == (1, 2, 8)
 
 
 # ---------------------------------------------------------------------------

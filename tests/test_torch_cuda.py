@@ -974,3 +974,91 @@ def test_child_process_runs_each_kernel_against_its_plain_version(cuda):
             tol = SSD_TOL if name == "ssd_scan" else ATTN_TOL
             np.testing.assert_allclose(case["kernel"], case["plain"],
                                        **tol["float32"])
+
+
+# ---------------------------------------------------------------------------
+# training: flash attention's gradient and a reduced train step
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,causal,window", [
+    (2, 8, 2, 600, 600, 128, True, 0),
+    (1, 8, 2, 600, 600, 128, True, 100),
+    (1, 8, 2, 70, 530, 64, False, 0),
+])
+def test_flash_attention_gradients_on_card(cuda, dtype, B, H, KV, Sq, Sk, d,
+                                           causal, window):
+    """``FlashAttentionFn`` on the card (the kernel's forward, the torch-op
+    backward) against autograd through the plain version in float32: the
+    forward bit-identical to the no-grad launch, one launch per call, the
+    same gradient bits twice, and each gradient within ``TOL`` of its
+    largest entry (float32: the float32 sums of both; bfloat16 also the
+    kernel's rounding of p and of the output, which dq and dk read through
+    rowsum(dO * O); chip_smoke.py holds them to the derived limit)."""
+    from repro_torch.kernels import reset_launch_counts
+
+    rng = np.random.default_rng(31)
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, H, Sq, d), dt, cuda)
+    k, v = (_randn(rng, (B, KV, Sk, d), dt, cuda) for _ in range(2))
+    dout = _randn(rng, (B, H, Sq, d), dt, cuda)
+    kw = dict(causal=causal, window=window)
+    with torch.no_grad():
+        direct = flash_attention(q, k, v, **kw)
+    runs = []
+    reset_launch_counts()
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, **kw)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, dout)))
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 2
+    assert torch.equal(runs[0][0], direct)
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref, **kw), ref,
+                               dout.float())
+    for name, got, w in zip(("dq", "dk", "dv"), runs[0][1:], want):
+        assert got.dtype == dt and got.shape == w.shape, name
+        scale = w.abs().max().item()
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), w.cpu().numpy(),
+            rtol=TOL[dtype]["rtol"], atol=TOL[dtype]["atol"] * scale,
+            err_msg=name)
+
+
+@pytest.mark.parametrize("overlap", ["serial", "hybrid"])
+def test_reduced_train_step_on_card_matches_the_cpu(cuda, overlap):
+    """qwen3-14b's reduced config cut to 2 layers, float32: one step of
+    ``make_train_step`` with 2 microbatches on the card and on the CPU from
+    the same weights and batch.  Flash launches: 2 layers x 2 microbatches
+    x (forward + remat recompute); the loss agrees to 1e-5; the parameters
+    to 1e-6 but for 0.1% of them (an Adam step's g / (|g| + eps) turns a
+    gradient's sign near zero into a whole lr, as on the CPU against the
+    reference, tests/test_torch_train.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import StepConfig, make_train_step
+
+    cfg = get_config("qwen3-14b").reduced(n_layers=2)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=96,
+                                       global_batch=4, seed=1)).batch_at(0)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, opt_cfg, None,
+                           StepConfig(microbatches=2, overlap=overlap))
+    card = init_params(cfg, seed=0)
+    host = LM(cfg, torch.device("cpu"))
+    host.load_state_dict({n: p.cpu() for n, p in card.state_dict().items()})
+    reset_launch_counts()
+    card, _, m_card = step(card, adamw_init(card), batch)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 2 * 2 * 2
+    host, _, m_host = step(host, adamw_init(host), batch)
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_host["loss"]),
+                               rtol=1e-5)
+    diff = torch.cat([(p.detach().cpu() - host.get_parameter(n).detach())
+                      .abs().ravel() for n, p in card.named_parameters()])
+    assert diff.max().item() <= 2 * opt_cfg.lr
+    assert (diff > 1e-6).float().mean().item() <= 1e-3

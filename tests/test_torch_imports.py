@@ -28,6 +28,12 @@ def test_port_imports_without_jax_or_reference_package():
         "import repro_torch.obs.perfetto, repro_torch.obs.export\n"
         "import repro_torch.mp, repro_torch.mp.pool, repro_torch.mp.worker\n"
         "import repro_torch.mp.tasks, repro_torch.mp.futures\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.data, repro_torch.data.pipeline\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
+        "import repro_torch.checkpoint.tasks\n"
+        "import repro_torch.train, repro_torch.train.steps\n"
+        "import repro_torch.train.trainer, repro_torch.train.train_lm\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

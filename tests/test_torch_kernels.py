@@ -215,3 +215,19 @@ def test_gemm_splits_fill_the_card_at_the_cholesky_tile():
 def test_gemm_splits_refuse_an_empty_product(M, N, K):
     with pytest.raises(ValueError, match="empty product"):
         tm.gemm_splits(M, N, K)
+
+
+def test_tile_matmul_refuses_inputs_that_require_grad():
+    """No backward: with grad on, an input that requires grad raises before
+    the device dispatch (the same on either device); under ``no_grad``, or
+    with inputs that do not require grad, the call runs."""
+    a = torch.ones(4, 3, requires_grad=True)
+    b = torch.ones(3, 5)
+    c = torch.ones(4, 5)
+    for args in ((a, b, None), (a.detach(), b.requires_grad_(), None),
+                 (a.detach(), b.detach(), c.requires_grad_())):
+        with pytest.raises(RuntimeError, match="no backward"):
+            tm.tile_matmul(*args)
+        with torch.no_grad():
+            assert tm.tile_matmul(*args).shape == (4, 5)
+    assert tm.tile_matmul(a.detach(), b.detach()).shape == (4, 5)

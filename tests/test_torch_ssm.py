@@ -123,6 +123,21 @@ def test_ssd_scan_checks_its_inputs():
         ops.ssd_scan(xdt, cs, Bm.bfloat16(), Cm)
 
 
+def test_ssd_scan_refuses_inputs_that_require_grad():
+    """No backward (ROADMAP Queue A item A11b): with grad on, an input that
+    requires grad raises before the device dispatch (the same on either
+    device); under ``no_grad`` the scan runs."""
+    xdt, cs, Bm, Cm = (torch.from_numpy(x) for x in
+                       _scan_inputs(1, 2, 8, 2, 4, 4, seed=3))
+    for i in range(4):
+        args = [xdt, cs, Bm, Cm]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            ss.ssd_scan(*args)
+        with torch.no_grad():
+            assert ss.ssd_scan(*args)[0].shape == xdt.shape
+
+
 def _kernel_passes(xdt, cs, Bm, Cm):
     """The SSD kernel's decomposition (``csrc/ssd_scan.cu``) in torch, on
     its scratch layout: each chunk's ``(C·Bᵀ)ᵀ`` and ``Cᵀ`` stacked, with

@@ -1,0 +1,617 @@
+"""The port's training stack against the reference package's, on the CPU.
+
+* ``lm.loss_fn`` and every parameter's gradient against
+  ``jax.value_and_grad(repro.models.lm.loss_fn)`` at float32 on reduced
+  qwen3-14b (dense), qwen3-moe-235b-a22b (tokens dropped at capacity),
+  seamless-m4t-medium (encdec) and llama-3.2-vision-11b (vlm), with masked
+  labels, on one numpy tree both packages load
+  (``test_torch_moe.reference_tree``: the reference's zero norm scales and
+  ``xgate`` set near one and 0.8, or most gradients would be zero);
+  ``remat=True`` against ``remat=False``;
+* AdamW (``adamw_update``, ``clip_by_global_norm``, ``lr_schedule``)
+  against the reference's, with clipping active, over float32 and
+  bfloat16 parameters;
+* three train steps (``single``; ``serial`` and ``hybrid`` with 4
+  microbatches; ``hybrid`` with ``compress_grads``) against the
+  reference's jitted steps from the same parameters and batches;
+* ``SyntheticLMData.batch_at`` bit for bit;
+* the trainer: the loss falls, a restart resumes, a preemption
+  checkpoints (the ports of ``tests/test_train_substrate.py``'s tests);
+* 40 steps at the reference example's schedule from the reference's fresh
+  tree and from the port's, in both packages (``torch_lr_witness``);
+* the ssm and hybrid families refuse to train (ROADMAP Queue A item
+  A11b), and the entry points raise without CUDA unless given the CPU.
+
+Tolerances: XLA and PyTorch sum the same float32 products in other
+orders.  The loss agrees to ``rtol = 1e-5``; each gradient leaf to
+``GRAD_RTOL`` times its largest entry (XLA's and ATen's sums differ by a
+few float32 units of that scale; 3e-6 is the largest seen).  AdamW on
+float32 parameters agrees to ``rtol = 1e-5`` (the update is elementwise;
+only the global norm's sum and the powers in the bias correction may
+round differently), on bfloat16 parameters to one bfloat16 unit in the
+last place (``rtol = 2**-7``: a float32 result one unit apart may round
+either way).  After three train steps the parameters agree to
+``STEP_ATOL`` but for at most ``STEP_OUTLIERS`` of the elements, and every
+element within two summed learning rates: Adam's first update is ``g /
+(|g| + eps)``, whose slope at ``g = 0`` is ``1 / eps``, so an element
+whose gradient lies within the packages' float32 rounding of zero can move
+by up to ``lr`` in either package (a few elements in 10^5 do; an update
+that differed everywhere, as an unapplied bf16 wire format would, fails
+the share).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.data import DataConfig as JaxDataConfig
+from repro.data import SyntheticLMData as JaxData
+from repro.models import lm as jax_lm
+from repro.optim import AdamWConfig as JaxAdamWConfig
+from repro.optim import adamw_init as jax_adamw_init
+from repro.optim import adamw_update as jax_adamw_update
+from repro.optim import clip_by_global_norm as jax_clip
+from repro.optim import lr_schedule as jax_lr_schedule
+from repro.train.steps import StepConfig as JaxStepConfig
+from repro.train.steps import make_train_step as jax_make_train_step
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, SyntheticLMData
+from repro_torch.models import (abstract_params, forward, init_params,
+                                loss_fn, params_from_reference,
+                                sharded_ce_loss)
+from repro_torch.models import layers as L
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               clip_by_global_norm, lr_schedule)
+from repro_torch.train import (StepConfig, Trainer, TrainerConfig,
+                               make_eval_step, make_train_step)
+from repro_torch.train import train_lm
+from test_torch_moe import reference_tree
+from torch_lr_witness import example_cfgs, trajectories
+
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+STEP_ATOL = 1e-6
+STEP_OUTLIERS = 1e-3
+ARCHS = ("qwen3-14b", "qwen3-moe-235b-a22b", "seamless-m4t-medium",
+         "llama-3.2-vision-11b")
+
+
+def _flat(tree, prefix=()):
+    """A reference tree's leaves by path, as numpy."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: np.asarray(tree, dtype=np.float32)}
+
+
+def _by_port_name(cfg, tree):
+    """A reference tree's leaves under the port's parameter names
+    (``blocks.3.attn.wq`` for ``blocks/attn/wq[3]``)."""
+    out = {}
+    for path, x in _flat(tree).items():
+        if path[0] in ("blocks", "enc_blocks"):
+            for i in range(x.shape[0]):
+                out[".".join((path[0], str(i)) + path[1:])] = x[i]
+        else:
+            out[".".join(path)] = x
+    return out
+
+
+def _batch(cfg, B=2, S=24, seed=5, frames=20):
+    """Tokens and labels (the first five of row 0 masked with -1), and an
+    encdec's encoder input or a vlm's patches, from numpy."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    batch["labels"][0, :5] = -1
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["enc_input"] = rng.standard_normal(
+            (B, frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _port_value_and_grad(model, cfg, batch, remat):
+    model.requires_grad_(True)
+    loss = loss_fn(model, cfg, batch, remat=remat)
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), dict(zip(names, grads))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def loss_pair(request):
+    """(port cfg, reference tree, batch, reference loss, reference grads by
+    port name) for one reduced two-layer model."""
+    arch = request.param
+    jcfg = jax_get_config(arch).reduced(n_layers=2)
+    cfg = get_config(arch).reduced(n_layers=2)
+    tree = reference_tree(jcfg)
+    batch = _batch(cfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss, grads = jax.value_and_grad(
+        lambda p: jax_lm.loss_fn(p, jcfg, jb, None, remat=True))(
+            jax.tree.map(jnp.asarray, tree))
+    return cfg, tree, batch, float(loss), _by_port_name(cfg, grads)
+
+
+def test_loss_and_every_gradient_match_jax_value_and_grad(loss_pair):
+    cfg, tree, batch, ref_loss, ref_grads = loss_pair
+    model = params_from_reference(cfg, tree, device="cpu")
+    loss, grads = _port_value_and_grad(model, cfg, batch, remat=True)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    np.testing.assert_allclose(float(loss), ref_loss, rtol=LOSS_RTOL)
+    assert sorted(grads) == sorted(ref_grads)
+    moving = 0
+    for name, g in grads.items():
+        ref = ref_grads[name]
+        scale = float(np.abs(ref).max())
+        np.testing.assert_allclose(g.numpy(), ref, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * scale, err_msg=name)
+        moving += scale > 0
+    # only the vlm's layer without cross-attention holds still (its xattn
+    # and lnx are unused, in both packages)
+    still = {n for n, g in ref_grads.items() if not np.abs(g).max()}
+    if cfg.family == "vlm":
+        assert still and all(n.startswith("blocks.0.") for n in still), still
+    else:
+        assert not still, still
+    assert moving == len(grads) - len(still)
+
+
+def test_moe_training_batch_drops_tokens_at_capacity():
+    """The MoE case above is the drop path: in each layer some expert is
+    routed more than its capacity of the batch's 48 tokens."""
+    arch = "qwen3-moe-235b-a22b"
+    cfg = get_config(arch).reduced(n_layers=2)
+    model = params_from_reference(
+        cfg, reference_tree(jax_get_config(arch).reduced(n_layers=2)),
+        device="cpu")
+    routed = []
+
+    def count(mod, args):
+        x = args[0].reshape(-1, cfg.d_model)
+        _, ids = L.moe_route(x, mod.router, cfg.top_k)
+        routed.append((torch.bincount(ids.flatten(),
+                                      minlength=cfg.n_experts).max().item(),
+                       L.moe_capacity(x.shape[0], cfg)))
+
+    for blk in model.blocks:
+        blk.moe.register_forward_pre_hook(count)
+    with torch.no_grad():
+        loss_fn(model, cfg, _batch(cfg))
+    assert len(routed) == 2 and all(n > c for n, c in routed), routed
+
+
+def test_remat_gives_the_same_loss_and_gradients(loss_pair):
+    """``remat=True`` checkpoints each block and recomputes it in the
+    backward pass: the same operations, so the same bits."""
+    cfg, tree, batch, _, _ = loss_pair
+    model = params_from_reference(cfg, tree, device="cpu")
+    l1, g1 = _port_value_and_grad(model, cfg, batch, remat=True)
+    l0, g0 = _port_value_and_grad(model, cfg, batch, remat=False)
+    assert torch.equal(l1, l0)
+    for name in g0:
+        assert torch.equal(g1[name], g0[name]), name
+
+
+def test_forward_without_grad_matches_eval_step(loss_pair):
+    cfg, tree, batch, ref_loss, _ = loss_pair
+    model = params_from_reference(cfg, tree, device="cpu")
+    loss = make_eval_step(cfg)(model, batch)
+    assert loss.grad_fn is None
+    np.testing.assert_allclose(float(loss), ref_loss, rtol=LOSS_RTOL)
+    with torch.no_grad():
+        h = forward(model, cfg, batch)
+    assert h.shape == (2, 24, cfg.d_model)
+
+
+def test_ce_loss_masks_padded_vocabulary_and_negative_labels():
+    """The padded vocabulary's columns never enter the loss, and a label
+    < 0 leaves its position out of the mean."""
+    cfg = get_config("qwen3-14b").reduced(vocab_size=500)     # padded to 512
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.standard_normal((2, 3, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, 512)).astype(np.float32))
+    labels = torch.tensor([[1, -1, 499], [-1, -1, 7]])
+    loss = sharded_ce_loss(h, w, labels, cfg)
+    logits = (h @ w)[..., :500]
+    ce = torch.nn.functional.cross_entropy(logits.reshape(6, 500),
+                                           labels.reshape(6),
+                                           ignore_index=-1)
+    np.testing.assert_allclose(float(loss), float(ce), rtol=1e-6)
+    w2 = w.clone()
+    w2[:, 500:] = 1e3                    # pad columns cannot move it
+    assert torch.equal(sharded_ce_loss(h, w2, labels, cfg), loss)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sharded_ce_loss(h, w, labels, cfg, ctx=object())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_families_refuse_to_train(arch):
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, device="cpu")
+    batch = _batch(cfg)
+    with pytest.raises(NotImplementedError, match="A11b"):
+        loss_fn(model, cfg, batch)
+    with pytest.raises(NotImplementedError, match="A11b"):
+        forward(model, cfg, batch, remat=False)
+
+
+def test_abstract_params_are_shapes_on_the_meta_device():
+    """qwen3-14b at full width holds no storage on ``meta``; cut to the 4
+    layers the card trains, it counts 2.878 B parameters (the vocabulary
+    padded to 152,064, the embeddings untied)."""
+    cfg = get_config("qwen3-14b")
+    params = dict(abstract_params(cfg).named_parameters())
+    assert all(p.device.type == "meta" for p in params.values())
+    assert params["embed.table"].shape == (152064, 5120)
+    assert params["blocks.39.mlp.wd"].shape == (17408, 5120)
+    assert params["blocks.0.attn.wq"].dtype == torch.bfloat16
+    cut = abstract_params(dataclasses.replace(cfg, n_layers=4))
+    assert sum(p.numel() for p in cut.parameters()) == 2_878_388_224
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+class _Leaves(torch.nn.Module):
+    """A few named parameters: a matrix, a bias and a norm scale."""
+
+    def __init__(self, arrays, dtype):
+        super().__init__()
+        for k, v in arrays.items():
+            setattr(self, k, torch.nn.Parameter(
+                torch.from_numpy(v.copy()).to(dtype), requires_grad=False))
+
+
+def _opt_arrays(rng):
+    return {"w": rng.standard_normal((6, 5)).astype(np.float32),
+            "b": 0.1 * rng.standard_normal(5).astype(np.float32),
+            "norm": 1.0 + 0.1 * rng.standard_normal(5).astype(np.float32)}
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(
+        x, dtype=np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_update_matches_the_reference_with_clipping(dtype):
+    """Five updates from one start, each with new numpy gradients whose
+    global norm is far above ``clip_norm``, through a warmup and the
+    cosine; every parameter, ``m``, ``v`` and the metrics agree."""
+    kw = dict(lr=0.05, warmup_steps=2, total_steps=6, clip_norm=0.5,
+              weight_decay=0.1)
+    rng = np.random.default_rng(4)
+    arrays = _opt_arrays(rng)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jp = {k: jnp.asarray(v, jdt) for k, v in arrays.items()}
+    jstate = jax_adamw_init(jp)
+    tdt = getattr(torch, dtype)
+    model = _Leaves(arrays, tdt)
+    state = adamw_init(model)
+    assert state["m"]["w"].dtype == torch.float32
+    assert state["step"].dtype == torch.int32
+    tol = dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "bfloat16" else \
+        dict(rtol=1e-5, atol=1e-7)
+    for _ in range(5):
+        g = {k: (3.0 * rng.standard_normal(v.shape)).astype(np.float32)
+             for k, v in arrays.items()}
+        jp, jstate, jinfo = jax_adamw_update(
+            JaxAdamWConfig(**kw), jp, {k: jnp.asarray(v, jdt)
+                                       for k, v in g.items()}, jstate)
+        model, state, info = adamw_update(
+            AdamWConfig(**kw), model,
+            {k: torch.from_numpy(v).to(tdt) for k, v in g.items()}, state)
+        assert float(jinfo["grad_norm"]) > 2 * kw["clip_norm"]
+        np.testing.assert_allclose(float(info["grad_norm"]),
+                                   float(jinfo["grad_norm"]), rtol=1e-5)
+        np.testing.assert_allclose(float(info["lr"]), float(jinfo["lr"]),
+                                   rtol=1e-6)
+        assert int(state["step"]) == int(jstate["step"])
+        for k in arrays:
+            p = getattr(model, k)
+            assert p.dtype == tdt
+            np.testing.assert_allclose(_np(p), _np(jp[k]), **tol, err_msg=k)
+            np.testing.assert_allclose(_np(state["m"][k]),
+                                       _np(jstate["m"][k]), rtol=1e-5,
+                                       atol=1e-7, err_msg=f"m {k}")
+            np.testing.assert_allclose(_np(state["v"][k]),
+                                       _np(jstate["v"][k]), rtol=1e-5,
+                                       atol=1e-7, err_msg=f"v {k}")
+
+
+def test_adamw_update_in_chunks_gives_the_same_bits(monkeypatch):
+    """The chunked in-place update computes each element alone: a chunk of
+    7 elements gives the whole-leaf update's bits."""
+    from repro_torch.optim import adamw as A
+
+    rng = np.random.default_rng(8)
+    arrays = _opt_arrays(rng)
+    g = {k: rng.standard_normal(v.shape).astype(np.float32)
+         for k, v in arrays.items()}
+    out = []
+    for chunk in (A.CHUNK, 7):
+        monkeypatch.setattr(A, "CHUNK", chunk)
+        model = _Leaves(arrays, torch.float32)
+        state = adamw_init(model)
+        for _ in range(2):
+            adamw_update(AdamWConfig(warmup_steps=0), model,
+                         {k: torch.from_numpy(v.copy()) for k, v in g.items()},
+                         state)
+        out.append({k: p.clone() for k, p in model.named_parameters()})
+    for k in arrays:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+def test_clip_by_global_norm_matches_the_reference():
+    rng = np.random.default_rng(9)
+    g = {k: v * 10 for k, v in _opt_arrays(rng).items()}
+    jg, jn = jax_clip({k: jnp.asarray(v) for k, v in g.items()}, 1.0)
+    tg, tn = clip_by_global_norm({k: torch.from_numpy(v.copy())
+                                  for k, v in g.items()}, 1.0)
+    np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    for k in g:
+        np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]),
+                                   rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("step", [0, 1, 5, 10, 11, 40, 99, 100, 150])
+def test_lr_schedule_matches_the_reference(step):
+    kw = dict(lr=3e-3, warmup_steps=10, total_steps=100, min_lr_frac=0.1)
+    ours = lr_schedule(AdamWConfig(**kw), torch.tensor(step, dtype=torch.int32))
+    ref = jax_lr_schedule(JaxAdamWConfig(**kw), jnp.int32(step))
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(float(ours), float(ref), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# train steps
+def tiny_cfgs():
+    """``tests/test_train_substrate.py``'s tiny deepseek-family model."""
+    kw = dict(n_layers=2, d_model=64, vocab_size=256, d_ff=128)
+    return (jax_get_config("deepseek-67b").reduced(**kw),
+            get_config("deepseek-67b").reduced(**kw))
+
+
+STEP_VARIANTS = {
+    "single": dict(microbatches=1),
+    "serial": dict(microbatches=4, overlap="serial"),
+    "hybrid": dict(microbatches=4, overlap="hybrid"),
+    "hybrid_compressed": dict(microbatches=4, overlap="hybrid",
+                              compress_grads=True),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
+def test_three_train_steps_match_the_reference(variant):
+    jcfg, cfg = tiny_cfgs()
+    tree = reference_tree(jcfg, seed=1)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=1.0)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      global_batch=8, seed=3))
+    batches = [data.batch_at(s) for s in range(3)]
+    jstep = jax.jit(jax_make_train_step(
+        jcfg, JaxAdamWConfig(**kw), None,
+        JaxStepConfig(**STEP_VARIANTS[variant])))
+    jp = jax.tree.map(jnp.asarray, tree)
+    jst = jax_adamw_init(jp)
+    model = params_from_reference(cfg, tree, device="cpu")
+    state = adamw_init(model)
+    step = make_train_step(cfg, AdamWConfig(**kw), None,
+                           StepConfig(**STEP_VARIANTS[variant]))
+    lr_sum = 0.0
+    for b in batches:
+        jp, jst, jm = jstep(jp, jst, {k: jnp.asarray(v) for k, v in b.items()})
+        model, state, m = step(model, state, b)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+        lr_sum += float(jm["lr"])
+    ref = _by_port_name(cfg, jp)
+    diff = np.concatenate([np.abs(p.detach().numpy() - ref[n]).ravel()
+                           for n, p in model.named_parameters()])
+    assert diff.max() <= 2 * lr_sum, diff.max()
+    assert (diff > STEP_ATOL).mean() <= STEP_OUTLIERS, \
+        (int((diff > STEP_ATOL).sum()), diff.size)
+
+
+def test_serial_and_hybrid_steps_give_the_same_bits():
+    """The same buckets summed in the same order: only their issue
+    differs, so the parameters after a step are identical (the reference's
+    test asks for allclose)."""
+    _, cfg = tiny_cfgs()
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                       global_batch=8, seed=3)).batch_at(0)
+    out = {}
+    for mode in ("serial", "hybrid"):
+        model = init_params(cfg, seed=0, device="cpu")
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=0),
+                               None, StepConfig(microbatches=4, overlap=mode))
+        model, _, m = step(model, adamw_init(model), batch)
+        out[mode] = (m["loss"], dict(model.named_parameters()))
+    assert torch.equal(out["serial"][0], out["hybrid"][0])
+    for name, p in out["serial"][1].items():
+        assert torch.equal(p, out["hybrid"][1][name]), name
+
+
+def test_sharded_steps_and_bad_options_raise():
+    _, cfg = tiny_cfgs()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_train_step(cfg, AdamWConfig(), object())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_train_step(cfg, AdamWConfig(), None, grad_pspecs={})
+    with pytest.raises(ValueError, match="overlap"):
+        make_train_step(cfg, AdamWConfig(), None, StepConfig(overlap="x"))
+    model = init_params(cfg, device="cpu")
+    step = make_train_step(cfg, AdamWConfig(), None,
+                           StepConfig(microbatches=3))
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                       global_batch=4)).batch_at(0)
+    with pytest.raises(ValueError, match="microbatches"):
+        step(model, adamw_init(model), batch)
+
+
+# ---------------------------------------------------------------------------
+# data
+@pytest.mark.parametrize("kw", [
+    dict(vocab_size=100, seq_len=16, global_batch=8, seed=7),
+    dict(vocab_size=100, seq_len=16, global_batch=8, seed=7, n_hosts=2,
+         host_id=1),
+    dict(vocab_size=151936, seq_len=64, global_batch=4, seed=0,
+         extra=(("patches", (3, 5)),)),
+])
+def test_batch_at_is_bit_identical_to_the_reference(kw):
+    ours, ref = SyntheticLMData(DataConfig(**kw)), JaxData(JaxDataConfig(**kw))
+    for step in (0, 1, 25, 1000):
+        a, b = ours.batch_at(step), ref.batch_at(step)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
+def test_data_prefetch_iterator_resumes_at_a_step():
+    d = SyntheticLMData(DataConfig(vocab_size=50, seq_len=8, global_batch=4))
+    d.start(from_step=3)
+    it = iter(d)
+    step, batch = next(it)
+    assert step == 3
+    assert np.array_equal(batch["tokens"], d.batch_at(3)["tokens"])
+    assert next(it)[0] == 4
+    d.stop()
+
+
+# ---------------------------------------------------------------------------
+# the trainer (ports of tests/test_train_substrate.py)
+def _mk_trainer(tmp_path, steps, ckpt_every=50, cfg=None):
+    cfg = cfg or tiny_cfgs()[1]
+    return Trainer(
+        cfg,
+        AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=steps, clip_norm=1.0),
+        TrainerConfig(steps=steps, ckpt_every=ckpt_every,
+                      ckpt_dir=str(tmp_path), log_every=5),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                   seed=3),
+        device="cpu")
+
+
+def test_trainer_loss_decreases(tmp_path):
+    out = _mk_trainer(tmp_path, steps=30).run()
+    losses = [m["loss"] for m in out["metrics"]]
+    assert out["final_step"] == 30
+    assert losses[-1] < losses[0]          # synthetic stream is learnable
+
+
+def test_trainer_restart_resumes(tmp_path):
+    t1 = _mk_trainer(tmp_path, steps=10, ckpt_every=10)
+    out1 = t1.run()
+    assert out1["final_step"] == 10
+    # restart with a higher step budget: resumes from step 10, not 0, with
+    # the saved parameters and optimizer state
+    t2 = _mk_trainer(tmp_path, steps=15, ckpt_every=10)
+    params, opt_state, start = t2.init_or_restore()
+    assert start == 10 and int(opt_state["step"]) == 10
+    for name, p in params.named_parameters():
+        assert p.requires_grad
+        assert torch.equal(p.detach(), out1["params"].get_parameter(name))
+    out2 = t2.run()
+    assert out2["final_step"] == 15
+
+
+def test_trainer_preemption_checkpoint_and_resumed_stream(tmp_path):
+    t = _mk_trainer(tmp_path, steps=1000, ckpt_every=1000)
+    orig_step = t.step_fn
+    count = {"n": 0}
+
+    def counting_step(*a):
+        count["n"] += 1
+        if count["n"] == 4:
+            t.request_preemption()
+        return orig_step(*a)
+
+    t.step_fn = counting_step
+    out = t.run()
+    assert out["preempted"]
+    assert out["final_step"] == 4
+    # the preemption checkpoint is restorable, and the resumed run reads
+    # the stream from step 4 on
+    t2 = _mk_trainer(tmp_path, steps=6)
+    _, _, start = t2.init_or_restore()
+    assert start == 4
+    seen = []
+    orig2 = t2.step_fn
+
+    def recording_step(params, opt_state, batch):
+        seen.append(batch["tokens"].numpy().copy())
+        return orig2(params, opt_state, batch)
+
+    t2.step_fn = recording_step
+    assert t2.run()["final_step"] == 6
+    fresh = SyntheticLMData(t2.data.cfg)
+    assert [np.array_equal(s, fresh.batch_at(4 + i)["tokens"])
+            for i, s in enumerate(seen)] == [True, True]
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
+def test_trainer_adds_zero_memory_for_cross_families(tmp_path, arch):
+    cfg = get_config(arch).reduced(n_layers=2)
+    out = _mk_trainer(tmp_path, steps=2, cfg=cfg).run()
+    assert out["final_step"] == 2
+    assert np.isfinite(out["metrics"][-1]["loss"])
+
+
+def test_train_lm_runs_the_reference_example_on_the_cpu(tmp_path, capsys):
+    out = train_lm.main(["--device", "cpu", "--steps", "10", "--batch", "4",
+                         "--seq", "32", "--ckpt", str(tmp_path)])
+    assert out["final_step"] == 10
+    assert "loss:" in capsys.readouterr().out
+    cfg = train_lm.model_config("small", "qwen3-14b", 4)
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (4, 5120, 151936)
+    assert train_lm.model_config("100m").param_count() > 100e6
+
+
+def test_entry_points_raise_without_cuda_unless_given_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    _, cfg = tiny_cfgs()
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, AdamWConfig(), tcfg, dcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--steps", "1", "--ckpt", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Trainer(cfg, AdamWConfig(), tcfg, dcfg, shardings={}, device="cpu")
+    assert dataclasses.replace(tcfg, steps=1).steps == 1
+
+
+@pytest.mark.parametrize("init", ["reference", "port"])
+def test_example_schedule_trajectory_is_the_references(init):
+    """40 hybrid steps at the reference example's schedule (lr 3e-3 after
+    20 warmup steps, 2 microbatches; ``torch_lr_witness``) from one tree,
+    the reference's fresh one (a zero final norm, stacked fan-in) or the
+    port's (scales of one, per-layer fan-in), through both packages on a
+    narrow cut of the example's configuration: every step's loss and the
+    held-out loss before and after agree to ``LOSS_RTOL``, so where the
+    trajectory goes is the tree's doing, not the port's."""
+    jcfg, cfg = example_cfgs(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                             head_dim=16, d_ff=128, vocab_size=256)
+    got = trajectories(jcfg, cfg, 40, data_kw=dict(seq_len=32,
+                                                   global_batch=8, seed=0),
+                       inits=(init,))[init]
+    (ref_losses, ref_held), (losses, held) = got["reference"], got["port"]
+    assert len(losses) == 40
+    np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(held, ref_held, rtol=LOSS_RTOL)
