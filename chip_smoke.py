@@ -135,11 +135,32 @@ Phases, each printed as one JSON line:
     timed against SDPA's pair; then ``make_train_step`` on qwen3-14b at
     full width cut to 4 of its 40 layers, bf16, seq 1,024, batch 4 in 2
     microbatches, ``overlap="hybrid"``, 8 steps through the prefetching
-    data stream (every loss finite, step 8's below step 1's, a held-out
-    batch's loss lower after than before, flash launches exactly 16 a
-    step, one ``serial`` step from the same start against hybrid's
+    data stream (every loss finite, the 8 trained batches' mean loss
+    lower after than before, step 8's below step 1's, a held-out batch's
+    loss lower after than before, flash launches exactly 16 a step, one
+    ``serial`` step from the same start against hybrid's
     first; step ms, tokens/s, ``train_mfu``, peak memory, AdamW ms, one
-    profiled step); then the ``Trainer`` at the reference example's 100m
+    profiled step); the SSM and hybrid families: ``SSDScanFn`` (the
+    kernel's forward, the torch-op backward) at mamba2-2.7b's and
+    zamba2-7b's training shapes (B = 2, T = 1,024, chunk 128, a chunk's
+    decay past float32 exp's overflow), y and the final state against the
+    plain version, dxdt, dcs, dBm and dCm against autograd through the
+    float64 plain version (``SSD_GRAD_F32``), the pair timed; the port of
+    the reference's decode-matches-forward check at full width in float32
+    (mamba2-2.7b at 4 layers, zamba2-7b at 6: a 511-token prefill and one
+    decode step against ``forward``'s position 511); the same two cuts'
+    training loss and every gradient on the card against the host's plain
+    versions from the same weights (``SSM_GRAD_CPU_RTOL``);
+    ``make_train_step`` as for qwen3-14b on mamba2-2.7b at full width and
+    depth and on zamba2-7b at full width cut to 12 of its 81 layers (scan
+    launches layers x 2 microbatches x 2 a step, zamba2's flash 2 uses x 2
+    x 2; the step-8 and held-out losses printed, not gated:
+    HELD_OUT_GATED); every train step also prints each kind of leaf's
+    gradient norm before the first step and after the last, the held-out
+    batch's loss after every step and 8 held-out batches' mean loss; the
+    zamba2 cell again from two other draws of its weights
+    (``train_ssm_seed_witness``); then the ``Trainer`` at the reference
+    example's 100m
     configuration, float32: 40 steps, checkpoints every 20, preempted at
     25 and restored at 25 by a new trainer whose batches equal an
     uninterrupted stream's; the loss falls; checkpoint bytes and save
@@ -160,6 +181,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -769,7 +791,7 @@ def flash_case(name, S, window, *, seed, B=1, H=40, KV=8, d=128,
     return row
 
 
-def ssd_inputs(B, T, H, N, P, chunk, seed, a=-1.0):
+def ssd_inputs(B, T, H, N, P, chunk, seed, a=-1.0, device="cuda"):
     """The SSD scan's float32 inputs made as an SSM layer makes them:
     silu'd x, B and C, step sizes softplus(N(0, 0.8)), about 0.75, and
     decay rate ``a``: -1 (the seed-0 model's a_log = 0) makes cs fall to
@@ -785,12 +807,12 @@ def ssd_inputs(B, T, H, N, P, chunk, seed, a=-1.0):
 
     def rand(shape, scale=1.0):
         x = (scale * rng.standard_normal(shape)).astype(np.float32)
-        return torch.from_numpy(x).to("cuda")
+        return torch.from_numpy(x).to(device)
 
     xs = F.silu(rand((B, T, H, P)))
     dt = F.softplus(rand((B, T, H), 0.8))
     Bm, Cm = F.silu(rand((B, T, N))), F.silu(rand((B, T, N)))
-    rate = torch.full((H,), a, device="cuda")
+    rate = torch.full((H,), a, device=device)
     return ssd_scan_inputs(xs, dt, rate, Bm, Cm, chunk=chunk)
 
 
@@ -1367,6 +1389,31 @@ BF16_ROUND = 2.0 ** -8
 #: bytes a parameter (bf16 p, grad and carried bucket; f32 accumulator, m
 #: and v) its 2.878 B parameters take 51.8 GB; 8 layers would take 75.6 GB
 TRAIN_ARCH, TRAIN_LAYERS = "qwen3-14b", 4
+#: the SSM and hybrid train steps (``train_step_ssm``), each at full width
+#: with ``train_step_phase``'s data, schedule and checks: mamba2-2.7b at its
+#: full 64 layers (2.703 B parameters, 48.6 GB at 18 bytes each) and
+#: zamba2-7b cut from 81 to 12 layers (the shared block used twice, at
+#: layers 5 and 11; 1.371 B parameters, 24.7 GB; all 81 would take 121.5
+#: GB)
+TRAIN_SSM = (("mamba2-2.7b", 64), ("zamba2-7b", 12))
+#: which train steps must also show step 8's loss below step 1's and the
+#: held-out batch's loss falling.  Every train step must lower the mean
+#: loss of the 8 batches it trained on (each evaluated before the first
+#: step and after the last: the same batches, so no batch-to-batch noise).
+#: A held-out batch shares nothing with them but the stream's law, which 8
+#: steps do not learn: what falls there is a fresh model's excess over log
+#: V, which qwen3-14b sheds.  The tied mamba2 starts within 0.02 of log V,
+#: so it has none to shed.  zamba2 has one, but at this rate its held-out
+#: loss swings by up to 0.1 between steps, and where step 8 leaves it
+#: depends on the draw of the weights (``train_ssm_seed_witness``).  From
+#: one tree, on the CPU, the reference's held-out loss lands on either
+#: side as the port's does, and so does the reference's own against
+#: itself at another chunk length (``tests/torch_lr_witness.py``; PERF.md).
+#: The SSM rows print both losses without gating on them
+HELD_OUT_GATED = ("qwen3-14b",)
+#: the cell whose 8 steps ``train_ssm_seed_witness`` repeats from other
+#: draws of its weights, and those draws' seeds
+SSM_SEED_WITNESS, SSM_WITNESS_SEEDS = ("zamba2-7b", 12), (1, 2)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 4, 2, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
                  clip_norm=1.0)
@@ -1393,6 +1440,10 @@ EXAMPLE_OPT = dict(lr=3e-3, warmup_steps=20, total_steps=TRAINER_STEPS)
 #: loss is read before and after it trains: the same batch both times, so
 #: the comparison carries no batch-to-batch noise
 HELD_OUT_STEP = 1_000_000
+#: the train steps also read the mean loss of this many held-out batches
+#: (data steps HELD_OUT_STEP on) before and after: 32 rows of the stream
+#: where the one batch holds 4
+HELD_OUT_BATCHES = 8
 TRAIN_DEVICE = "cuda"
 
 
@@ -1560,6 +1611,291 @@ def train_flash_grad_phase(smi) -> dict:
     return main
 
 
+#: the SSD scan's gradients (``SSDScanFn``: the kernel's forward, the
+#: torch-op backward) against autograd through the float64 plain version
+#: on the card (float64: ``exp(cs_i - cs_j)`` above the diagonal stays
+#: finite, so the plain version's ``where`` after the exp is safe there).
+#: Each gradient entry is a float32 sum of at most N P = 8,192 products
+#: (dcs's state term at mamba2's N = 128, P = 64; the intra-chunk terms
+#: sum L P = 8,192), whose rounding is at most n 2**-24 = 4.9e-4 of the
+#: sum of the terms' magnitudes in the worst case and about sqrt(n)
+#: 2**-24 = 5.4e-6 of it for rounding errors of random sign; the limit is
+#: 1e-4 of the leaf's largest entry (TRAIN_GRAD_F32's), between the two
+SSD_GRAD_F32 = 1e-4
+#: the SSD scan's training shapes: B = 2 rows of a microbatch (global
+#: batch 4 in 2), T = 1,024, chunk 128; (name, H, N, P) of mamba2-2.7b
+#: and zamba2-7b
+SSD_TRAIN = (("mamba2-2.7b", 80, 128, 64), ("zamba2-7b", 112, 64, 64))
+#: the SSM decode-matches-forward check (the port of the reference's
+#: ``tests/test_arch_smoke.py::test_decode_matches_forward``), float32 at
+#: full width: (arch, layers), zamba2-7b's 6 layers holding one use of the
+#: shared block (layer 5).  The chunked scan (the kernel) and the
+#: recurrent decode step sum the same float32 terms in other orders over
+#: 511 positions, through 4-6 layers of products 2,560-7,168 wide; the
+#: reference holds its reduced models to 2e-2, and DECODE_FWD_TOL is 20
+#: times tighter
+SSM_DECODE = (("mamba2-2.7b", 4), ("zamba2-7b", 6))
+#: ``train_ssm_grad_vs_cpu``: the tokens a row (two of the published
+#: 128-step chunks, so the carried state takes part), and each gradient
+#: leaf's limit on the card against the host, relative to its largest
+#: entry (float32 sums of up to 7,168 products taken in other orders by
+#: cuBLAS and the host's BLAS, the kernels against their plain versions)
+SSM_GRAD_SEQ, SSM_GRAD_CPU_RTOL = 256, 1e-3
+DECODE_FWD_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def ssd_grad_case(name, B, T, H, N, P, *, seed, smi, timed=True):
+    """``SSDScanFn`` at one training shape, with inputs made as an SSM
+    layer makes them (``ssd_inputs``: a = -1, a chunk's decay past 88): y
+    and the final state against the float32 plain version at SSD_TOL;
+    dxdt, dcs, dBm and dCm, with gradients of y and of the final state,
+    against autograd through the float64 plain version at SSD_GRAD_F32;
+    every gradient finite; the forward bit-identical to the no-grad call
+    and the same bits twice.  With ``timed``, the forward + backward pair
+    as training runs it (the final state's gradient None) against the
+    same pair through the float32 plain version; no single PyTorch call
+    computes the scan, so there is no library time."""
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    inputs = ssd_inputs(B, T, H, N, P, 128, seed, device=TRAIN_DEVICE)
+    _, nc, L, _, _ = inputs[0].shape
+    chunk_decay = -inputs[1][:, :, -1].min().item()
+    check(chunk_decay > 88, f"{name}: a chunk decays by only {chunk_decay}, "
+          f"not past float32 exp's overflow")
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal(tuple(inputs[0].shape))
+                          .astype(np.float32)).to(TRAIN_DEVICE)
+    dfinal = torch.from_numpy(rng.standard_normal((B, H, N, P))
+                              .astype(np.float32)).to(TRAIN_DEVICE)
+    with torch.no_grad():
+        direct = ssd_scan(*inputs)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        y, st = ssd_scan(*leaves)
+        runs.append((y.detach(), st.detach(), *torch.autograd.grad(
+            (y, st), leaves, (dy, dfinal))))
+    torch.cuda.synchronize()
+    check(torch.equal(runs[0][0], direct[0])
+          and torch.equal(runs[0][1], direct[1]),
+          f"{name}: the Function's forward differs from the no-grad call")
+    names = ("y", "state", "dxdt", "dcs", "dBm", "dCm")
+    for a, b_, what in zip(runs[0], runs[1], names):
+        check(torch.equal(a, b_), f"{name}: two runs' {what} differ")
+    errs = {}
+    want_y, want_s = ssd_scan_ref(*inputs)
+    for what, got, want in (("y", runs[0][0], want_y),
+                            ("state", runs[0][1], want_s)):
+        t = SSD_TOL[torch.float32]
+        diff = (got - want).abs()
+        share = (diff / (t["atol"] + t["rtol"] * want.abs())).max().item()
+        errs[what] = {"max_abs_err": diff.max().item(), "tol_share": share}
+        check(share <= 1.0, f"{name}: {what} off the plain version by "
+              f"{diff.max().item()}, {share:.3g} of SSD_TOL")
+    del want_y, want_s
+    ref = [t.double().requires_grad_() for t in inputs]
+    want = torch.autograd.grad(ssd_scan_ref(*ref), ref,
+                               (dy.double(), dfinal.double()))
+    for what, got, w in zip(names[2:], runs[0][2:], want):
+        diff = (got.double() - w).abs()
+        limit = SSD_GRAD_F32 * w.abs().max().item()
+        errs[what] = {"max_abs_err": diff.max().item(),
+                      "max_abs": w.abs().max().item(),
+                      "tol_share": diff.max().item() / limit}
+        check(bool(torch.isfinite(got).all()), f"{name}: {what} is not "
+              f"finite")
+        check(diff.max().item() <= limit, f"{name}: {what} off the float64 "
+              f"autograd by {diff.max().item()}, {diff.max().item() / limit:.3g}"
+              f" of its limit")
+    del ref, want, runs
+    row = {"phase": "train_ssd_grad", "case": name, "B": B, "T": T, "nc": nc,
+           "L": L, "H": H, "N": N, "P": P, "chunk_decay": chunk_decay,
+           "dtype": "float32", "errors": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "card": smi}
+    if timed:
+        leaves = [t.clone().requires_grad_() for t in inputs]
+
+        def pair(fwd):
+            return lambda: torch.autograd.grad(fwd(*leaves)[0], leaves, dy)
+
+        # forward: xdt, cs, B, C read, y and the final state written;
+        # backward: xdt, cs, B, C and dy read, their four gradients written
+        # (float32 throughout).  Operations: the forward's (ssd_case's
+        # count) three times, as a product's forward and backward
+        pairs = L * (L + 1) // 2
+        fwd_flops = 2.0 * B * nc * (H * (2 * L * N * P + pairs * P)
+                                    + pairs * N)
+        n_bytes = 4 * (B * nc * L * (5 * H * P + 3 * H + 6 * N)
+                       + B * H * N * P)
+        bound_ms, bound_by = _bound(n_bytes, 3 * fwd_flops, torch.float32)
+        row.update({
+            "ms": device_ms(pair(ssd_scan), reps=10),
+            "plain_ms": device_ms(pair(ssd_scan_ref), reps=3),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "flops": 3 * fwd_flops,
+            "forward_ms": device_ms(lambda: ssd_scan(*inputs), reps=10)})
+        row["backward_ms"] = row["ms"] - row["forward_ms"]
+    emit(row)
+    return row
+
+
+def train_ssd_grad_phase(smi) -> dict:
+    """The scan's gradient at mamba2-2.7b's training shape (B = 2, T =
+    1,024, H = 80, N = 128, P = 64, chunk 128) and at zamba2-7b's (H =
+    112, N = 64), both timed; returns mamba2's row."""
+    rows = [ssd_grad_case(f"{arch} train B=2 T=1024", 2, 1024, H, N, P,
+                          seed=60 + i, smi=smi)
+            for i, (arch, H, N, P) in enumerate(SSD_TRAIN)]
+    return rows[0]
+
+
+def ssm_decode_matches_forward_phase(smi) -> None:
+    """For each of SSM_DECODE, float32 at full width, seed-0 weights: a
+    prefill of 511 tokens (numpy seed 1, two rows) and one decode step of
+    token 511 give the logits of ``forward`` over all 512 tokens at
+    position 511, within DECODE_FWD_TOL: the scan kernel's chunked forward
+    against the plain recurrent step, and on zamba2 flash attention's
+    prefill against decode attention.  Launches exact: the scan at every
+    layer of the prefill and of the forward, flash at every use of the
+    shared block in both, decode attention at each use in the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    prefill)
+    from repro_torch.models.lm import layer_flags, logits_from_hidden
+
+    for arch, layers in SSM_DECODE:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        uses = sum(layer_flags(cfg).get("use_attn", []))
+        model = init_params(cfg, seed=0, device=TRAIN_DEVICE)
+        tokens = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, PROMPT), dtype=np.int32)
+        s0 = PROMPT - 1
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cache, _ = prefill(model, cfg, {"tokens": tokens[:, :s0]},
+                           max_len=PROMPT + 1)
+        _, dec = decode_step(model, cfg, cache, torch.from_numpy(
+            tokens[:, s0:]).to(TRAIN_DEVICE, torch.int64))
+        with torch.no_grad():
+            h = forward(model, cfg, {"tokens": tokens})
+            full = logits_from_hidden(model, cfg, h[:, s0:])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        diff = (dec.float() - full.float()).abs()
+        t = DECODE_FWD_TOL
+        share = (diff / (t["atol"] + t["rtol"] * full.abs())).max().item()
+        row = {"phase": "ssm_decode_matches_forward", "arch": arch,
+               "layers": layers, "dtype": "float32", "prompt": s0,
+               "max_abs_err": diff.max().item(),
+               "max_abs_logit": full.abs().max().item(), "tol": t,
+               "tol_share": share, "launches": counts, "seconds": seconds,
+               "card": smi}
+        emit(row)
+        want = {"tile_matmul": 0, "flash_attention": 2 * uses,
+                "decode_attention": uses, "ssd_scan": 2 * layers}
+        check(counts == want, f"{arch}: launches {counts}, expected {want}")
+        check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
+              f"{arch}: a logit is not finite")
+        check(share <= 1.0, f"{arch}: decode vs forward at position {s0}: "
+              f"max abs err {diff.max().item()}, {share:.3g} of the "
+              f"tolerance")
+        del model, cache, h, full, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_ssm_grad_vs_cpu_phase(smi) -> list:
+    """For each of SSM_DECODE, float32 at full width, seed-0 weights: the
+    training loss (``loss_fn`` with remat) and every parameter's gradient
+    at one microbatch of the train steps' stream cut to SSM_GRAD_SEQ tokens
+    (two chunks), on the card (the scan and flash kernels, ``SSDScanFn``'s
+    and ``FlashAttentionFn``'s backwards) and on the host (their plain
+    versions) from the same weights: the loss within 1e-5, each leaf's
+    gradient within SSM_GRAD_CPU_RTOL of that leaf's largest entry, every
+    leaf's gradient non-zero and finite.  The reduced models' losses and
+    gradients are held against the reference package's on the CPU
+    (tests/test_torch_train.py); this holds the card's full-width SSM and
+    hybrid gradients against the same code's plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import LM, init_params, loss_fn
+    from repro_torch.models.lm import layer_flags
+
+    rows = []
+    for arch, layers in SSM_DECODE:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        batch = SyntheticLMData(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=SSM_GRAD_SEQ,
+            global_batch=TRAIN_BATCH // TRAIN_MICRO, seed=0)).batch_at(0)
+        card = init_params(cfg, seed=0, device=TRAIN_DEVICE)
+        host = LM(cfg, torch.device("cpu"))
+        host.load_state_dict({n: p.cpu() for n, p in card.state_dict().items()})
+        out = {}
+        for where, model in (("card", card), ("host", host)):
+            dev = model.device
+            model.requires_grad_(True)
+            names, leaves = zip(*model.named_parameters())
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = loss_fn(model, cfg, {k: torch.as_tensor(v, device=dev)
+                                        for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            torch.cuda.synchronize()
+            out[where] = (float(loss), dict(zip(names, grads)),
+                          time.perf_counter() - t0, launch_counts())
+        (l_card, g_card, s_card, counts), (l_host, g_host, s_host, _) = (
+            out["card"], out["host"])
+        uses = sum(layer_flags(cfg).get("use_attn", []))
+        check(counts["ssd_scan"] == 2 * layers
+              and counts["flash_attention"] == 2 * uses,
+              f"{arch}: launches {counts} in one forward + remat backward")
+        check(abs(l_card - l_host) <= 1e-5 * abs(l_host),
+              f"{arch}: loss on the card {l_card}, on the host {l_host}")
+        worst, worst_leaf = 0.0, None
+        for n, g in g_host.items():
+            scale = g.abs().max().item()
+            gc_ = g_card[n].cpu()
+            check(scale > 0 and bool(torch.isfinite(gc_).all()),
+                  f"{arch}: {n}'s gradient is zero or not finite")
+            share = ((gc_ - g).abs().max().item()
+                     / (SSM_GRAD_CPU_RTOL * scale))
+            if share > worst:
+                worst, worst_leaf = share, n
+        check(worst <= 1.0, f"{arch}: {worst_leaf}'s gradient on the card "
+              f"is {worst:.3g} of the limit from the host's")
+        row = {"phase": "train_ssm_grad_vs_cpu", "arch": arch,
+               "layers": layers, "dtype": "float32", "tokens": [
+                   TRAIN_BATCH // TRAIN_MICRO, SSM_GRAD_SEQ],
+               "loss": [l_card, l_host], "launches": counts,
+               "worst_share": worst, "worst_leaf": worst_leaf,
+               "rtol": SSM_GRAD_CPU_RTOL, "card_s": s_card,
+               "host_s": s_host, "card": smi}
+        emit(row)
+        rows.append(row)
+        del card, host, out, g_card, g_host
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_step_ssm_phase(smi) -> dict:
+    """``train_step_phase`` on each of TRAIN_SSM, each model freed before
+    the next: mamba2-2.7b at full width and depth, zamba2-7b at full width
+    cut to 12 layers; the rows by arch."""
+    return {arch: train_step_phase(smi, arch, layers, phase="train_step_ssm")
+            for arch, layers in TRAIN_SSM}
+
+
 def _params_differ(model, before, lr):
     """(share of parameters not bit-identical to ``before`` (host copies),
     the largest difference, the largest allowed: 2 lr plus one bf16 unit
@@ -1578,15 +1914,88 @@ def _params_differ(model, before, lr):
     return differ / n, worst, allowed
 
 
-def train_step_phase(smi) -> dict:
-    """``make_train_step`` on qwen3-14b at full width cut to 4 layers,
-    bf16, seed-0 weights drawn on the card, ``SyntheticLMData`` at seq
-    1,024 and global batch 4 in 2 microbatches under ``overlap="hybrid"``,
-    8 steps: every loss finite, step 8's below step 1's, flash launches per
-    step exact (4 layers x 2 microbatches x forward and remat recompute);
-    one ``serial`` step from the same start against hybrid's first; step
-    ms, tokens/s, ``train_mfu``, peak memory, AdamW ms and one profiled
-    step's device busy share."""
+def leaf_grad_norms(model, cfg, batch, top: int = 8) -> list:
+    """The ``top`` largest gradient norms of ``loss_fn`` at ``batch`` by
+    kind of leaf, each over every layer's copy of it
+    (``blocks.*.ssm.wdt``), before any clipping: ``[[name, norm], ...]``,
+    and last ``["total", norm]``."""
+    from repro_torch.models import loss_fn
+
+    model.requires_grad_(True)
+    names, leaves = zip(*model.named_parameters())
+    with torch.enable_grad():
+        loss = loss_fn(model, cfg, {k: torch.as_tensor(v, device=TRAIN_DEVICE)
+                                    for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    sq = {}
+    for n, g in zip(names, grads):
+        kind = re.sub(r"\.\d+\.", ".*.", n)
+        sq[kind] = sq.get(kind, 0.0) + g.double().pow(2).sum().item()
+    del grads, loss
+    rows = sorted(([k, v ** 0.5] for k, v in sq.items()),
+                  key=lambda r: -r[1])
+    return rows[:top] + [["total", sum(sq.values()) ** 0.5]]
+
+
+def train_launches(cfg) -> dict:
+    """Each kernel's launches in one train step of ``cfg``: every layer's
+    SSM block (ssm, hybrid) launches the scan and every attention layer, or
+    use of a hybrid's shared block, launches flash attention, once per
+    microbatch in the forward and once in its remat recompute."""
+    from repro_torch.models.lm import layer_flags
+
+    if cfg.family in ("ssm", "hybrid"):
+        scan = cfg.n_layers
+        attn = sum(layer_flags(cfg).get("use_attn", []))
+    else:
+        scan, attn = 0, cfg.n_layers
+    return {"tile_matmul": 0, "flash_attention": attn * TRAIN_MICRO * 2,
+            "decode_attention": 0, "ssd_scan": scan * TRAIN_MICRO * 2}
+
+
+def train_model_flops(cfg, n_params: int, emb: int):
+    """``(all, scan)``: a step's model FLOPs at ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens, and the float32 scan's share of them: 6 N
+    T over the parameters a token multiplies by (all but an untied
+    embedding table, which is gathered; a tied table also serves the
+    unembedding product, so it counts), plus attention's QK^T and PV over
+    the causal pairs at each attention layer or use of the shared block,
+    plus each SSM layer's scan products (``ssd_case``'s count), forward
+    and backward (x3); remat not counted."""
+    from repro_torch.models.lm import layer_flags
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * (n_params - (0 if cfg.tie_embeddings else emb)) * tokens
+    if cfg.family in ("ssm", "hybrid"):
+        uses = sum(layer_flags(cfg).get("use_attn", []))
+        L = min(cfg.ssm_chunk, TRAIN_SEQ)
+        nc = -(-TRAIN_SEQ // L)
+        pairs = L * (L + 1) // 2
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        scan = 2.0 * TRAIN_BATCH * nc * (H * (2 * L * N * P + pairs * P)
+                                         + pairs * N)
+        scan = 3 * scan * cfg.n_layers
+    else:
+        uses, scan = cfg.n_layers, 0.0
+    flops += scan + (3 * 4 * cfg.n_heads * cfg.head_dim * TRAIN_BATCH
+                     * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 * uses)
+    return flops, scan
+
+
+def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
+                     phase: str = "train_step") -> dict:
+    """``make_train_step`` on ``arch`` at full width cut to ``layers``
+    (qwen3-14b, 4 of 40, by default), bf16, seed-0 weights drawn on the
+    card, ``SyntheticLMData`` at seq 1,024 and global batch 4 in 2
+    microbatches under ``overlap="hybrid"``, 8 steps: every loss and
+    gradient norm finite, the mean loss of the 8 trained batches lower
+    after than before, and for HELD_OUT_GATED step 8's loss below step
+    1's and a held-out batch's lower after than before; each kernel's
+    launches per step exact
+    (:func:`train_launches`); one ``serial`` step from the same start
+    against hybrid's first; step ms, tokens/s, ``train_mfu``, peak memory,
+    AdamW ms and one profiled step's device busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1596,7 +2005,7 @@ def train_step_phase(smi) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
     from repro_torch.train import StepConfig, make_eval_step, make_train_step
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     opt_cfg = AdamWConfig(**TRAIN_OPT)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=0)
@@ -1626,12 +2035,27 @@ def train_step_phase(smi) -> dict:
     opt = adamw_init(model)
     step = make_train_step(cfg, opt_cfg, None, StepConfig(
         microbatches=TRAIN_MICRO, overlap="hybrid"))
-    held_out = data.batch_at(HELD_OUT_STEP)
+    held_set = [data.batch_at(HELD_OUT_STEP + k)
+                for k in range(HELD_OUT_BATCHES)]
+    held_out = held_set[0]
     evaluate = make_eval_step(cfg)
+
+    def held_set_loss():
+        return sum(float(evaluate(model, b)) for b in held_set) / len(
+            held_set)
+
     held_before = float(evaluate(model, held_out))
+    held_by_step = [held_before]
+    set_before = held_set_loss()
+    micro0 = {k: v[:TRAIN_BATCH // TRAIN_MICRO]
+              for k, v in data.batch_at(0).items()}
+    norms_before = leaf_grad_norms(model, cfg, micro0)
+    trained = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    trained_before = sum(float(evaluate(model, b)) for b in trained) / len(
+        trained)
     data.start(0)
     it = iter(data)
-    losses, step_s, launches = [], [], []
+    losses, grad_norms, step_s, launches = [], [], [], []
     try:
         for i in range(TRAIN_STEPS):
             s, batch = next(it)
@@ -1644,6 +2068,8 @@ def train_step_phase(smi) -> dict:
             step_s.append(time.perf_counter() - t1)
             launches.append(launch_counts())
             losses.append(float(metrics["loss"]))
+            grad_norms.append(float(metrics["grad_norm"]))
+            held_by_step.append(float(evaluate(model, held_out)))
             if i == 0:
                 hybrid_metrics = {k: float(v) for k, v in metrics.items()}
                 share, worst, allowed = _params_differ(model, serial_params,
@@ -1652,27 +2078,34 @@ def train_step_phase(smi) -> dict:
     finally:
         data.stop()
     peak = torch.cuda.max_memory_allocated()
-    held_after = float(evaluate(model, held_out))
-    want = TRAIN_LAYERS * TRAIN_MICRO * 2
+    held_after = held_by_step[-1]
+    set_after = held_set_loss()
+    trained_after = sum(float(evaluate(model, b)) for b in trained) / len(
+        trained)
+    norms_after = leaf_grad_norms(model, cfg, micro0)
+    del trained
+    want = train_launches(cfg)
     for i, c in enumerate(launches):
-        check(c["flash_attention"] == want,
-              f"train step {i + 1}: {c['flash_attention']} flash launches, "
-              f"expected {want} (layers x microbatches x forward and remat)")
-        check(c["decode_attention"] == c["ssd_scan"] == c["tile_matmul"] == 0,
-              f"train step {i + 1}: launches of another kernel {c}")
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    check(held_after < held_before, f"the held-out loss did not fall: "
-          f"{held_before} -> {held_after}")
+        check(c == want, f"{arch} train step {i + 1}: launches {c}, expected "
+              f"{want} (layers or uses x microbatches x forward and remat)")
+    check(all(math.isfinite(x) for x in losses + grad_norms),
+          f"{arch}: losses {losses}, gradient norms {grad_norms}")
+    check(trained_after < trained_before, f"{arch}: the mean loss of the "
+          f"trained batches did not fall: {trained_before} -> {trained_after}")
+    if arch in HELD_OUT_GATED:
+        check(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
+              f"{losses}")
+        check(held_after < held_before, f"{arch}: the held-out loss did not "
+              f"fall: {held_before} -> {held_after}")
     check(serial_metrics["loss"] == hybrid_metrics["loss"],
-          f"serial and hybrid step 1 losses differ: {serial_metrics} vs "
-          f"{hybrid_metrics}")
+          f"{arch}: serial and hybrid step 1 losses differ: {serial_metrics} "
+          f"vs {hybrid_metrics}")
     check(abs(serial_metrics["grad_norm"] - hybrid_metrics["grad_norm"])
           <= 1e-5 * hybrid_metrics["grad_norm"],
-          f"serial and hybrid grad norms differ: {serial_metrics} vs "
+          f"{arch}: serial and hybrid grad norms differ: {serial_metrics} vs "
           f"{hybrid_metrics}")
     check(share <= STEP_DIFF_SHARE and worst <= allowed,
-          f"serial vs hybrid parameters: {share:.3g} of them differ "
+          f"{arch}: serial vs hybrid parameters: {share:.3g} of them differ "
           f"(limit {STEP_DIFF_SHARE}), by up to {worst} (limit {allowed})")
 
     # one profiled step: device time by kernel, the busy share
@@ -1696,31 +2129,39 @@ def train_step_phase(smi) -> dict:
     del grads
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    emb = model.embed.table.numel()
-    # model FLOPs: 6 N T over the parameters a token multiplies by (all but
-    # the embedding table, which is gathered), plus attention's QK^T and PV
-    # over the causal pairs, forward and backward (x3); remat not counted
-    attn = (3 * 4 * cfg.n_heads * cfg.head_dim * TRAIN_BATCH
-            * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 * cfg.n_layers)
-    model_flops = 6 * (n_params - emb) * tokens + attn
+    model_flops, scan_flops = train_model_flops(
+        cfg, n_params, model.embed.table.numel())
     med = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    # the floor: the step's products at the bf16 peak, and the optimizer's
-    # bytes (bf16 p read and written, f32 gradient read, f32 m and v read
-    # and written) at the memory rate
-    floor_products_ms = model_flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    # the floor: the step's products at the bf16 peak (the scan's, which
+    # are float32, at the float32 rate), and the optimizer's bytes (bf16 p
+    # read and written, f32 gradient read, f32 m and v read and written)
+    # at the memory rate
+    floor_products_ms = ((model_flops - scan_flops)
+                         / PEAK_FLOPS[torch.bfloat16]
+                         + scan_flops / PEAK_FLOPS[torch.float32]) * 1e3
     floor_opt_ms = n_params * (2 + 2 + 4 + 8 + 8) / HBM_BYTES_PER_S * 1e3
-    row = {"phase": "train_step", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+    row = {"phase": phase, "arch": arch, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": n_params, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
            "microbatches": TRAIN_MICRO, "overlap": "hybrid",
            "opt": TRAIN_OPT, "setup_s": setup_s, "losses": losses,
+           "grad_norms": grad_norms,
+           "leaf_grad_norms": {"before": norms_before,
+                               "after": norms_after},
            "held_out_loss": [held_before, held_after],
+           "held_out_by_step": held_by_step,
+           "held_out_set_loss": [set_before, set_after],
+           "trained_batches_loss": [trained_before, trained_after],
+           "held_out_gated": arch in HELD_OUT_GATED,
            "step_s": step_s, "median_step_ms": med * 1e3,
            "tokens_per_s": tokens / med, "model_flops": model_flops,
+           "scan_flops": scan_flops,
            "train_mfu": model_flops / med / PEAK_FLOPS[torch.bfloat16],
            "peak_memory_gb": peak / 1e9,
+           "launches_per_step": launches[0],
            "flash_launches_per_step": launches[0]["flash_attention"],
            "flash_launches": sum(c["flash_attention"] for c in launches),
+           "scan_launches": sum(c["ssd_scan"] for c in launches),
            "adamw_ms": adamw_ms, "floor_products_ms": floor_products_ms,
            "floor_optimizer_ms": floor_opt_ms,
            "serial_vs_hybrid": {"serial": serial_metrics,
@@ -1928,6 +2369,59 @@ def trainer_lr_witness_phase(smi) -> dict:
     emit(row)
     gc.collect()
     torch.cuda.empty_cache()
+    return row
+
+
+def train_ssm_seed_witness_phase(smi) -> dict:
+    """``train_step_ssm``'s zamba2-7b cell (12 layers, bf16, TRAIN_OPT, the
+    same stream, batch and hybrid schedule, 8 steps) from the seed-1 and
+    seed-2 draws of its weights beside the seed-0 cell: per-step losses,
+    the held-out batch's loss after every step, the held-out set's and the
+    trained batches' mean loss before and after, each finite.  Where 8
+    steps leave the held-out loss of one draw is not where they leave
+    another's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import StepConfig, make_eval_step, make_train_step
+
+    arch, layers = SSM_SEED_WITNESS
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    held_set = [data.batch_at(HELD_OUT_STEP + k)
+                for k in range(HELD_OUT_BATCHES)]
+    trained = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    evaluate = make_eval_step(cfg)
+    mean = lambda model, bs: sum(  # noqa: E731
+        float(evaluate(model, b)) for b in bs) / len(bs)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), None, StepConfig(
+        microbatches=TRAIN_MICRO, overlap="hybrid"))
+    row = {"phase": "train_ssm_seed_witness", "arch": arch, "layers": layers,
+           "opt": TRAIN_OPT, "card": smi}
+    for seed in SSM_WITNESS_SEEDS:
+        model = init_params(cfg, seed=seed, device=TRAIN_DEVICE)
+        opt = adamw_init(model)
+        held = [float(evaluate(model, held_set[0]))]
+        sets, tr = [mean(model, held_set)], [mean(model, trained)]
+        losses = []
+        for b in trained:
+            model, opt, metrics = step(model, opt, b)
+            losses.append(float(metrics["loss"]))
+            held.append(float(evaluate(model, held_set[0])))
+        sets.append(mean(model, held_set))
+        tr.append(mean(model, trained))
+        check(all(math.isfinite(x) for x in losses + held + sets + tr),
+              f"{arch} seed {seed}: losses {losses}, held-out {held}")
+        row[f"seed_{seed}"] = {"losses": losses, "held_out_by_step": held,
+                               "held_out_set_loss": sets,
+                               "trained_batches_loss": tr}
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(row)
     return row
 
 
@@ -3073,7 +3567,12 @@ def main() -> int:
     # training: flash attention's gradient, the train step at full width,
     # the trainer with a preemption and a restart
     flash_train = train_flash_grad_phase(smi)
+    ssd_train = train_ssd_grad_phase(smi)
+    ssm_decode_matches_forward_phase(smi)
+    train_ssm_grad_vs_cpu_phase(smi)
     train_row = train_step_phase(smi)
+    ssm_rows = train_step_ssm_phase(smi)
+    train_ssm_seed_witness_phase(smi)
     trainer_row = trainer_phase(smi)
     trainer_lr_witness_phase(smi)
 
@@ -3100,8 +3599,10 @@ def main() -> int:
     # the MoE, VLM and enc-dec models' batch paths, each counted alone
     new_paths = {f"serving_{arch}": batch_rows[arch]
                  for arch, _, _, _ in NEW_SERVE}
+    zamba = batch_rows["zamba2-7b"]
     decode_by_path = {
         "serving": qwen["decode_attention_launches"],
+        "serving_zamba2-7b": zamba["decode_attention_launches"],
         "serving_compiled": qwen["compiled_decode_attention_launches"],
         "serving_mp": serving_mp["decode_attention"],
         **{k: r["decode_attention_launches"] for k, r in new_paths.items()}}
@@ -3113,10 +3614,13 @@ def main() -> int:
     # training: the train step's 8 steps, the trainer's 40 (each step's
     # forward and its remat recompute launch the kernel)
     flash_by_path = {"serving": qwen["flash_attention_launches"],
+                     "serving_zamba2-7b": zamba["flash_attention_launches"],
                      "serving_mp": serving_mp["flash_attention"],
                      **{k: r["flash_attention_launches"]
                         for k, r in new_paths.items()},
                      "train_step": train_row["flash_launches"],
+                     "train_step_zamba2-7b":
+                         ssm_rows["zamba2-7b"]["flash_launches"],
                      "trainer": trainer_row["flash_launches"]}
     flash = line("flash_attention", flash_main, sum(flash_by_path.values()))
     flash["launches_by_path"] = flash_by_path
@@ -3124,10 +3628,20 @@ def main() -> int:
     flash["train_pair"] = {k: flash_train[k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "forward_ms", "max_abs_err")}
-    scan_by_path = {"serving": batch_rows["zamba2-7b"]["ssd_scan_launches"],
-                    "serving_mp": serving_mp["ssd_scan"]}
+    # serving: zamba2-7b's and mamba2-2.7b's batch paths and the sharded
+    # serve; training: each SSM train step's 8 steps
+    scan_by_path = {"serving": zamba["ssd_scan_launches"],
+                    "serving_mamba2-2.7b":
+                        batch_rows["mamba2-2.7b"]["ssd_scan_launches"],
+                    "serving_mp": serving_mp["ssd_scan"],
+                    **{f"train_step_{arch}": r["scan_launches"]
+                       for arch, r in ssm_rows.items()}}
     scan = line("ssd_scan", ssd_main, sum(scan_by_path.values()))
     scan["launches_by_path"] = scan_by_path
+    # the forward + backward pair at mamba2's training shape (float32)
+    scan["train_pair"] = {k: ssd_train[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "forward_ms", "max_abs_err")}
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [gemm, flash, decode, scan]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ their launch counts.
 * :mod:`~repro_torch.kernels.decode_attention` — the attention of a decode
   step over the KV cache (``csrc/decode_attention.cu``);
 * :mod:`~repro_torch.kernels.ssd_scan` — the Mamba2 SSD chunk scan of an
-  SSM layer's prefill (``csrc/ssd_scan.cu``);
+  SSM layer's prefill, scoring and training (``csrc/ssd_scan.cu``; its
+  gradient through ``SSDScanFn``);
 * :mod:`~repro_torch.kernels.ref` — the plain versions;
 * :func:`launch_counts` / :func:`reset_launch_counts` — every kernel's
   launch count, for showing that a run went through the kernels.

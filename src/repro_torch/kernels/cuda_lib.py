@@ -126,8 +126,9 @@ def refuse_grad(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name} has no backward: its kernel's output would carry no "
             f"gradient to inputs that require one; call it under "
-            f"torch.no_grad() or on detached tensors (only flash_attention "
-            f"is differentiable, through FlashAttentionFn)")
+            f"torch.no_grad() or on detached tensors (flash_attention and "
+            f"ssd_scan are differentiable, through FlashAttentionFn and "
+            f"SSDScanFn)")
 
 
 def nvcc_path() -> str:

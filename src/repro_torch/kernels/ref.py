@@ -99,7 +99,8 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ssd_chunk_ref(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
                   Cm: torch.Tensor, s_in: torch.Tensor):
-    """One Mamba2 SSD chunk (the SSD kernel's unit of work), in float32.
+    """One Mamba2 SSD chunk (the SSD kernel's unit of work), in float32
+    (float64 for float64 inputs, which the gradient tests differentiate).
 
     xdt ``(L, H, P)`` = x * dt; cs ``(L, H)`` the cumulative log-decay;
     Bm/Cm ``(L, N)``; s_in ``(H, N, P)`` the incoming state.  Returns
@@ -110,8 +111,8 @@ def ssd_chunk_ref(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
     ``exp``, as the reference does: ``exp(cs_i - cs_j)`` for ``j > i`` may be
     ``inf``, and ``where`` never multiplies it."""
     L = xdt.shape[0]
-    f = torch.float32
-    x, c, b = xdt.to(f), Cm.to(f), Bm.to(f)
+    f = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x, c, b, cs = xdt.to(f), Cm.to(f), Bm.to(f), cs.to(f)
     cb = c @ b.T                                                  # (L, L)
     diff = cs[:, None, :] - cs[None, :, :]                        # (L, L, H)
     mask = torch.ones(L, L, dtype=torch.bool, device=xdt.device).tril()
@@ -133,10 +134,13 @@ def ssd_scan_ref(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
     Chunks run in order, each batch row carrying its float32 state from a
     zero start (the reference package's ``ssd_scan_ref`` loop).  Returns
     ``(y (B, nc, L, H, P)`` in xdt's dtype, ``final_state (B, H, N, P)``
-    float32)."""
+    float32).  float64 inputs run in float64 throughout: autograd through
+    that is the gradient tests' float64 formulation (there ``exp(cs_i -
+    cs_j)`` above the diagonal stays finite, so the ``where`` is safe)."""
     B, nc, L, H, P = xdt.shape
     N = Bm.shape[-1]
-    s = torch.zeros((B, H, N, P), dtype=torch.float32, device=xdt.device)
+    f = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    s = torch.zeros((B, H, N, P), dtype=f, device=xdt.device)
     ys = []
     for c in range(nc):
         ych, sch = [], []

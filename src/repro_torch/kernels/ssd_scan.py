@@ -1,5 +1,6 @@
 """Wrapper of the hand-written Hopper SSD chunk-scan kernel
-(``csrc/ssd_scan.cu``), the Mamba2 scan of every SSM layer's prefill.
+(``csrc/ssd_scan.cu``), the Mamba2 scan of every SSM layer's prefill,
+scoring and training forward.
 
 ``ssd_scan(xdt, cs, Bm, Cm)`` takes the chunked layout of the reference's
 ``ssd_scan``: xdt ``(B, nc, L, H, P)`` = x * dt, cs ``(B, nc, L, H)`` the
@@ -22,20 +23,30 @@ the wrapper allocates (:func:`scratch_shapes`), with the heads of a chunk
 cut into head groups per chunk (:func:`chunk_groups`); ``launches``
 counts the call once.
 
+Gradients: every call goes through :class:`SSDScanFn`, whose forward is
+the launch (or the plain version) and whose backward is
+:func:`ssd_scan_bwd`, written in torch ops; autograd records it only when
+grad mode is on and an input requires grad, so serving's calls carry no
+history.  The reference has no backward kernel either: its training
+differentiates ``repro/models/ssm.py::ssd_chunked`` with ``jax.grad``.
+
 Replaces the Pallas kernel ``repro/kernels/ssd_scan.py::ssd_scan``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import cuda_lib
 from .ref import ssd_scan_ref
 
-__all__ = ["MAX_SMEM_BYTES", "PS", "TARGET_BLOCKS", "chunk_groups", "launches",
-           "scratch_shapes", "smem_bytes", "ssd_scan"]
+__all__ = ["MAX_SMEM_BYTES", "PS", "SSDScanFn", "TARGET_BLOCKS", "chunk_groups",
+           "launches", "scratch_shapes", "smem_bytes", "ssd_scan",
+           "ssd_scan_bwd"]
 
 #: launches of the CUDA kernel (CPU calls do not count)
 launches = cuda_lib.LaunchCounter("ssd_scan")
@@ -151,9 +162,38 @@ def _check(xdt, cs, Bm, Cm):
 def ssd_scan(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor):
     """The SSD chunk scan: returns ``(y (B, nc, L, H, P), final_state (B,
-    H, N, P))``."""
+    H, N, P))``, through :class:`SSDScanFn`, which carries a gradient back
+    to xdt, cs, Bm and Cm where one is to flow."""
+    return SSDScanFn.apply(xdt, cs, Bm, Cm)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward is the kernel's launch
+    (the plain version on CPU tensors), which it counts like any launch;
+    the backward is :func:`ssd_scan_bwd` from the saved inputs.  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward
+    pass, and that launch counts too.  A gradient of None for y or for the
+    final state (training never reads the final state) is taken as
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, xdt, cs, Bm, Cm):
+        ctx.set_materialize_grads(False)
+        y, final = _forward(xdt, cs, Bm, Cm)
+        ctx.save_for_backward(xdt, cs, Bm, Cm)
+        return y, final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dfinal):
+        xdt, cs, Bm, Cm = ctx.saved_tensors
+        return ssd_scan_bwd(xdt, cs, Bm, Cm, dy, dfinal)
+
+
+def _forward(xdt, cs, Bm, Cm):
+    """The kernel's launch on CUDA tensors, the plain version on CPU
+    ones."""
     B, nc, L, H, P, N = _check(xdt, cs, Bm, Cm)
-    cuda_lib.refuse_grad("ssd_scan", xdt, cs, Bm, Cm)
     if xdt.device.type == "cpu":
         return ssd_scan_ref(xdt, cs, Bm, Cm)
     if xdt.device.type != "cuda":
@@ -188,3 +228,103 @@ def ssd_scan(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
                            f"P={P}, {xdt.dtype})")
     launches.add()
     return y, final
+
+
+def ssd_scan_bwd(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, dy, dfinal):
+    """The gradient of :func:`ssd_scan` in torch ops: returns ``(dxdt, dcs,
+    dBm, dCm)`` in the inputs' types for the gradients ``dy`` ``(B, nc, L,
+    H, P)`` of y and ``dfinal`` ``(B, H, N, P)`` of the final state (any
+    strides; None for zeros).
+
+    The counterpart of what ``jax.grad`` computes through the reference's
+    ``ssd_chunked``, which no Pallas kernel differentiates.  Per chunk c,
+    head h, with S_c the state entering the chunk (S_0 = 0), the forward is
+
+    * y_i = sum_{j <= i} (C_i . B_j) e^{cs_i - cs_j} x_j   (intra-chunk)
+      + e^{cs_i} C_i . S_c                                  (inter-chunk);
+    * S_{c+1} = e^{cs_L} S_c + sum_j e^{cs_L - cs_j} B_j (x) x_j  (carry),
+
+    x = xdt, cs_L the chunk's last entry.  The entering states are
+    recomputed here in torch ops from the inputs (one product for the
+    chunks' increments, then ``nc`` steps of the carry), so the backward
+    takes the same inputs on either device: the kernel's scratch holds
+    them too, but the plain version has no scratch, and the recurrence
+    costs one state-sized product, small beside the ``L x L`` terms.  The
+    state gradients run the carry backwards from ``dfinal``: D_nc =
+    dfinal, D_c = e^{cs_L} D_{c+1} + sum_i e^{cs_i} C_i (x) dy_i.  All
+    other terms are vectorised over batch rows and chunks, a few ``(B, nc,
+    L, L, H)`` tensors at a time.  B and C are shared by all heads (one
+    group), so their gradients sum over H.
+
+    The decay ``e^{cs_i - cs_j}`` is masked *before* its exp
+    (``masked_fill(-inf)``): above the diagonal ``cs_i - cs_j`` passes 88
+    once a chunk's decay does, and an ``exp`` that overflows to inf would
+    turn the zero cotangent of a ``where`` into NaN, as it does in the
+    reference (``repro/models/ssm.py:92``).  ``e^{cs_i}`` may underflow to
+    zero far into a chunk, which no term divides by.  Arithmetic is
+    float32 (float64 for float64 inputs)."""
+    B, nc, L, H, P = xdt.shape
+    N = Bm.shape[-1]
+    acc = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    dev = xdt.device
+    x, b, c, cum = xdt.to(acc), Bm.to(acc), Cm.to(acc), cs.to(acc)
+    dy = (torch.zeros((B, nc, L, H, P), dtype=acc, device=dev) if dy is None
+          else dy.to(acc))
+
+    # the states entering each chunk, S (B, nc, H, N, P)
+    a_last = cum[:, :, -1]                                       # (B, nc, H)
+    w_end = torch.exp(a_last[:, :, None] - cum)                  # (B, nc, L, H)
+    xw = x * w_end[..., None]
+    inc = torch.einsum("bcjn,bcjhp->bchnp", b, xw)
+    carry = torch.exp(a_last)[..., None, None]                 # (B, nc, H, 1, 1)
+    S = torch.empty_like(inc)
+    s = torch.zeros((B, H, N, P), dtype=acc, device=dev)
+    for ch in range(nc):
+        S[:, ch] = s
+        s = s * carry[:, ch] + inc[:, ch]
+    del inc
+
+    # the inter-chunk term's gradients, and the carry backwards: D[:, c] =
+    # D_{c+1}, the gradient of the state leaving chunk c
+    ea = torch.exp(cum)                                          # (B, nc, L, H)
+    dye = dy * ea[..., None]
+    dc = torch.einsum("bcihp,bchnp->bcin", dye, S)
+    dcs = ea * (torch.einsum("bcin,bchnp->bcihp", c, S) * dy).sum(-1)
+    q = torch.einsum("bcin,bcihp->bchnp", c, dye)
+    del dye
+    D = torch.empty_like(S)
+    d = (torch.zeros((B, H, N, P), dtype=acc, device=dev) if dfinal is None
+         else dfinal.to(acc))
+    for ch in reversed(range(nc)):
+        D[:, ch] = d
+        d = d * carry[:, ch] + q[:, ch]
+    del q
+
+    # the state term: S_{c+1} = e^{cs_L} S_c + sum_j w_j B_j (x) x_j
+    bd = torch.einsum("bcjn,bchnp->bcjhp", b, D)               # B_j . D
+    dx = bd * w_end[..., None]
+    t = (bd * xw).sum(-1)                                      # (B, nc, L, H)
+    del bd
+    dcs = dcs - t
+    dcs[:, :, -1] += t.sum(2) + carry[..., 0, 0] * (S * D).sum((-2, -1))
+    db = torch.einsum("bcjhp,bchnp->bcjn", xw, D)
+    del xw, D, S, t
+
+    # the intra-chunk term: M_ij = (C_i . B_j) e^{cs_i - cs_j}, j <= i
+    keep = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (.., i, j, H)
+    decay = decay.masked_fill_(~keep[:, :, None], -math.inf).exp_()
+    cb = torch.einsum("bcin,bcjn->bcij", c, b)
+    m = decay * cb[..., None]
+    dx = dx + torch.einsum("bcijh,bcihp->bcjhp", m, dy)
+    dm = torch.einsum("bcihp,bcjhp->bcijh", dy, x)             # dy_i . x_j
+    dcb = (dm * decay).sum(-1)
+    del decay
+    dm.mul_(m)                                                 # d(cs_i - cs_j)
+    del m
+    dcs = dcs + dm.sum(3) - dm.sum(2)
+    del dm
+    dc = dc + torch.einsum("bcij,bcjn->bcin", dcb, b)
+    db = db + torch.einsum("bcij,bcin->bcjn", dcb, c)
+    return dx.to(xdt.dtype), dcs.to(cs.dtype), db.to(Bm.dtype), dc.to(Cm.dtype)

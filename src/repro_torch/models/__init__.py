@@ -3,9 +3,8 @@ Mamba2 (SSD) block, the models of all six families (dense, moe, ssm,
 hybrid, encdec, vlm), and the decode-step serving graphs.
 
 The training names ``forward``, ``loss_fn``, ``sharded_ce_loss`` and
-``abstract_params`` run the dense, moe, encdec and vlm families (the ssm
-and hybrid families wait for ROADMAP Queue A item A11b); the sharding
-names (``param_pspecs``, ``cache_pspecs``) wait for item 12.
+``abstract_params`` run all six families; the sharding names
+(``param_pspecs``, ``cache_pspecs``) wait for ROADMAP Queue A item 12.
 """
 
 from .config import ModelConfig

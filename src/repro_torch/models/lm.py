@@ -44,18 +44,19 @@ The cross-attending families keep their memory (the encoder's output, or
 the patches) in the decode cache as ``"memory"``; a decode step projects it
 through each cross layer's ``wk``/``wv`` again, as the reference does.
 
-Training (``forward``, ``loss_fn``) runs the dense, moe, encdec and vlm
-families; gradients flow once the parameters require grad
-(``params.requires_grad_(True)``).  ``remat=True``, the reference's
-default, checkpoints each block with ``torch.utils.checkpoint``, the
-counterpart of ``jax.checkpoint(nothing_saveable)``: its activations are
-recomputed in the backward pass.  The ssm and hybrid families raise
-(ROADMAP Queue A item A11b: the SSD scan has no backward yet).
+Training and scoring (``forward``, ``loss_fn``) run all six families;
+gradients flow once the parameters require grad
+(``params.requires_grad_(True)``), through the SSD scan's and flash
+attention's autograd Functions.  ``remat=True``, the reference's default,
+checkpoints each layer with ``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint(nothing_saveable)``: its activations are recomputed in
+the backward pass.  A hybrid's layer is the reference's unit: the shared
+block (where the layer runs it) and the SSM block, checkpointed together.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -413,6 +414,22 @@ def _no_ctx(ctx) -> None:
 # ---------------------------------------------------------------------------
 # prefill / decode
 # ---------------------------------------------------------------------------
+def _ssm_layer(x: torch.Tensor, *, ssm: SSMBlock, shared, rope_cs,
+               state=None, kv_cache=None, cache_index: Optional[int] = None):
+    """One layer of the ssm and hybrid families (the reference's
+    ``forward`` body): the ``shared`` block first where it is given (over
+    ``kv_cache`` at ``cache_index`` when decoding), then ``x +
+    ssm(ln1(x))`` from ``state`` (None: a fresh state).  Returns ``(x,
+    (the shared block's K/V or None, the SSM's new state))``; the caller
+    decides what goes into a cache."""
+    kv = None
+    if shared is not None:
+        x, kv = shared(x, window=0, rope_cs=rope_cs, cache=kv_cache,
+                       cache_index=cache_index)
+    x, new = ssm(x, state)
+    return x, (kv, new)
+
+
 def _ssm_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
                 cache: Dict[str, Any], positions: torch.Tensor,
                 decode: bool) -> torch.Tensor:
@@ -427,21 +444,18 @@ def _ssm_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
               if any(use_attn) else None)
     states = cache["ssm"]
     S = x.shape[1]
-    idx = cache["index"]
     for i, blk in enumerate(params.blocks):
-        if use_attn[i]:
-            slot = flags["attn_slot"][i]
-            if decode:
-                x, _ = params.shared(x, window=0, rope_cs=tables,
-                                     cache={"k": cache["k"][slot],
-                                            "v": cache["v"][slot]},
-                                     cache_index=idx)
-            else:
-                x, kv = params.shared(x, window=0, rope_cs=tables)
-                cache["k"][slot, :, :S] = kv["k"]
-                cache["v"][slot, :, :S] = kv["v"]
+        slot = flags["attn_slot"][i] if use_attn[i] else None
+        kv_cache = ({"k": cache["k"][slot], "v": cache["v"][slot]}
+                    if use_attn[i] and decode else None)
         st = {name: t[i] for name, t in states.items()} if decode else None
-        x, new = blk(x, st)
+        x, (kv, new) = _ssm_layer(
+            x, ssm=blk, shared=params.shared if use_attn[i] else None,
+            rope_cs=tables, state=st, kv_cache=kv_cache,
+            cache_index=cache["index"] if decode else None)
+        if use_attn[i] and not decode:
+            cache["k"][slot, :, :S] = kv["k"]
+            cache["v"][slot, :, :S] = kv["v"]
         for name, t in states.items():
             t[i] = new[name]
     return x
@@ -452,9 +466,11 @@ def _block_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
     return blk(x, **kw)[0]
 
 
-def _run_block(blk: nn.Module, x: torch.Tensor, remat: bool,
+def _run_block(blk: Callable, x: torch.Tensor, remat: bool,
                **kw) -> torch.Tensor:
-    """``blk(x, **kw)``'s output; with ``remat`` while grad is on, under
+    """``blk(x, **kw)``'s output (``blk`` a block, or a function of x such
+    as :func:`_ssm_layer`, returning ``(output, extra)``); with ``remat``
+    while grad is on, under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
     ``nothing_saveable``): only the block's input is kept, and its forward
     runs again in the backward pass."""
@@ -500,30 +516,31 @@ def _memory(params: LM, cfg: ModelConfig, batch: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 # forward / loss (training and scoring)
 # ---------------------------------------------------------------------------
-def _no_ssm_training(cfg: ModelConfig) -> None:
-    if cfg.family in _SSM_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported to "
-            f"repro_torch yet: the SSD scan has no backward; see ROADMAP "
-            f"Queue A item A11b")
-
-
 def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
             *, remat: bool = True) -> torch.Tensor:
     """The final hidden states ``(B, S, d_model)`` of ``batch["tokens"]``
     ``(B, S)`` (plus an encdec's ``"enc_input"`` or a vlm's ``"patches"``),
     after the final norm: the reference's ``lm.forward``.  Runs under
-    whatever grad mode the caller set; ``remat`` checkpoints each block
-    (and encoder layer) when grad is on.  The ssm and hybrid families
-    raise ``NotImplementedError`` (ROADMAP Queue A item A11b)."""
+    whatever grad mode the caller set; ``remat`` checkpoints each layer
+    (and encoder layer) when grad is on.  The ssm and hybrid families keep
+    no cache: each layer's SSM state is dropped (prefill and decode keep
+    theirs through ``_ssm_layers``)."""
     _no_ctx(ctx)
-    _no_ssm_training(cfg)
     dev = params.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     Sq = tokens.shape[1]
     x = params.embed.table[tokens]
     positions = torch.arange(Sq, device=dev)[None, :]
     flags = layer_flags(cfg)
+    if cfg.family in _SSM_FAMILIES:
+        use_attn = flags.get("use_attn", [False] * cfg.n_layers)
+        tables = (L.rope_tables(positions, cfg.rope_theta, cfg.head_dim)
+                  if any(use_attn) else None)
+        for i, blk in enumerate(params.blocks):
+            x = _run_block(_ssm_layer, x, remat, ssm=blk,
+                           shared=params.shared if use_attn[i] else None,
+                           rope_cs=tables)
+        return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     tables = _rope_by_theta(cfg, flags, positions)
     memory = _memory(params, cfg, batch, remat=remat)
     cross = _cross_layers(cfg)

@@ -13,12 +13,16 @@ and :class:`SSM` keeps the reference's parameter names (``wz wx wb wc wdt
 dt_bias a_log d_skip conv_x conv_b conv_c norm wo``), so ``blocks.3.ssm.wx``
 is the reference's ``blocks/ssm/wx[3]``.
 
-Prefill runs the scan through the port's hand-written SSD chunk-scan kernel
+Prefill, scoring and training run the scan through the port's
+hand-written SSD chunk-scan kernel
 (:func:`~repro_torch.kernels.ssd_scan.ssd_scan`), where the reference's
 ``ssd_chunked`` computes it in ``jnp`` and names the Pallas kernel as the
 TPU fast path; on CPU tensors the kernel's wrapper takes its plain version.
-Decode is the reference's single-step recurrence in plain torch: no kernel
-computes it.
+Gradients flow through the scan's autograd Function (a torch-op backward,
+as ``jax.grad`` differentiates the reference's jnp scan) and through the
+padding, cumulative sum and casts of :func:`ssd_scan_inputs`, the causal
+conv and the gating, all plain torch ops.  Decode is the reference's
+single-step recurrence in plain torch: no kernel computes it.
 """
 
 from __future__ import annotations

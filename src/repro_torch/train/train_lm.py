@@ -6,14 +6,16 @@ The port of the reference's ``examples/train_lm.py``, with its flags and
 its two deepseek-family configurations (``--scale small``: 4 layers, d
 256; ``--scale 100m``: 12 layers, d 768, vocab 32,768; both float32).
 ``--arch`` trains a published configuration instead, at full width in
-its own dtype, ``--layers N`` cutting its depth (the ssm and hybrid
-families are not trained yet: ROADMAP Queue A item A11b).  It runs on the
-CUDA device unless ``--device cpu`` is given; a rerun with the same
-``--ckpt`` resumes from the latest checkpoint there.
+its own dtype, ``--layers N`` cutting its depth; every family trains,
+mamba2-2.7b at its full depth.  It runs on the CUDA device unless
+``--device cpu`` is given; a rerun with the same ``--ckpt`` resumes from
+the latest checkpoint there.
 
 Run:  python -m repro_torch.train.train_lm --device cpu --steps 40
       python -m repro_torch.train.train_lm --scale 100m --steps 300
       python -m repro_torch.train.train_lm --arch qwen3-14b --layers 4 \\
+          --batch 4 --seq 1024 --steps 8
+      python -m repro_torch.train.train_lm --arch mamba2-2.7b \\
           --batch 4 --seq 1024 --steps 8
 """
 

@@ -1062,3 +1062,93 @@ def test_reduced_train_step_on_card_matches_the_cpu(cuda, overlap):
                       .abs().ravel() for n, p in card.named_parameters()])
     assert diff.max().item() <= 2 * opt_cfg.lr
     assert (diff > 1e-6).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,T,H,N,P", [
+    (2, 300, 8, 16, 32),                # ragged, B > 1, three chunks
+    (1, 512, 112, 64, 64),              # zamba2-7b's heads and state
+])
+def test_ssd_scan_gradients_on_card(cuda, B, T, H, N, P):
+    """``SSDScanFn`` on the card (the kernel's forward, the torch-op
+    backward) at chunk 128 with the model's decay (a chunk decays by ~95,
+    past exp's float32 overflow above the diagonal): one launch per call,
+    the forward bit-identical to the no-grad launch, the same gradient
+    bits twice, every gradient finite and within 1e-4 of its largest entry
+    of autograd through the float64 plain version on the card (float32
+    sums in another order; tests/test_torch_ssm.py's SCAN_GRAD_RTOL)."""
+    from repro_torch.kernels import reset_launch_counts
+
+    xdt, cs, Bm, Cm = _ssd_inputs(B, T, H, N, P, 128, torch.float32, cuda,
+                                  seed=41)
+    assert cs.min().item() < -88
+    rng = np.random.default_rng(42)
+    dy = _randn(rng, tuple(xdt.shape), torch.float32, cuda)
+    dfinal = _randn(rng, (B, H, N, P), torch.float32, cuda)
+    with torch.no_grad():
+        direct = ss.ssd_scan(xdt, cs, Bm, Cm)
+    runs = []
+    reset_launch_counts()
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (xdt, cs, Bm, Cm)]
+        y, s = ss.ssd_scan(*leaves)
+        runs.append((y.detach(), s.detach(), *torch.autograd.grad(
+            (y * dy).sum() + (s * dfinal).sum(), leaves)))
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan"] == 2
+    assert torch.equal(runs[0][0], direct[0])
+    assert torch.equal(runs[0][1], direct[1])
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    ref = [t.double().requires_grad_() for t in (xdt, cs, Bm, Cm)]
+    y, s = ssd_scan_ref(*ref)
+    want = torch.autograd.grad((y * dy.double()).sum()
+                               + (s * dfinal.double()).sum(), ref)
+    for name, got, w in zip(("dxdt", "dcs", "dBm", "dCm"), runs[0][2:], want):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all(), name
+        np.testing.assert_allclose(
+            got.double().cpu().numpy(), w.cpu().numpy(), rtol=0,
+            atol=1e-4 * w.abs().max().item(), err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_reduced_ssm_train_step_on_card_matches_the_cpu(cuda, arch):
+    """mamba2-2.7b's and zamba2-7b's reduced configs cut to 2 layers,
+    float32, 128 tokens (four of the reduced 32-step chunks), one hybrid
+    step with 2 microbatches on the card and on the CPU from the same
+    weights and batch.  Launches: the scan 2 layers x 2 microbatches x
+    (forward + remat recompute), flash the same for zamba2's one use of
+    the shared block (layer 1); the loss agrees to 1e-5; the parameters as
+    in the qwen3 case above."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import StepConfig, make_train_step
+
+    cfg = get_config(arch).reduced(n_layers=2)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=128, global_batch=4,
+                                       seed=1)).batch_at(0)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, opt_cfg, None,
+                           StepConfig(microbatches=2, overlap="hybrid"))
+    card = init_params(cfg, seed=0)
+    host = LM(cfg, torch.device("cpu"))
+    host.load_state_dict({n: p.cpu() for n, p in card.state_dict().items()})
+    reset_launch_counts()
+    card, _, m_card = step(card, adamw_init(card), batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["ssd_scan"] == 2 * 2 * 2
+    assert counts["flash_attention"] == (1 * 2 * 2 if arch == "zamba2-7b"
+                                         else 0)
+    assert counts["decode_attention"] == counts["tile_matmul"] == 0
+    host, _, m_host = step(host, adamw_init(host), batch)
+    assert math.isfinite(float(m_card["loss"]))
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_host["loss"]),
+                               rtol=1e-5)
+    diff = torch.cat([(p.detach().cpu() - host.get_parameter(n).detach())
+                      .abs().ravel() for n, p in card.named_parameters()])
+    assert diff.max().item() <= 2 * opt_cfg.lr
+    assert (diff > 1e-6).float().mean().item() <= 1e-3

@@ -8,7 +8,15 @@
   recurrence, the outputs), written out in torch on its padded scratch
   layout, against the same two; and its shared-memory plan.
 * ``ssd_chunked`` and ``_causal_conv`` against ``repro.models.ssm``'s.
+* The scan's gradient (``SSDScanFn``, through ``ssd_chunked`` and on the
+  kernel's layout) against ``jax.grad`` of the reference's
+  ``ssd_chunked`` and ``ssd_scan_ref`` and against autograd through the
+  float64 plain version, at ``SCAN_GRAD_RTOL``; and where the reference's
+  gradient is NaN (a chunk decaying past ~88), the port's finite and equal
+  to the float64 one.
 * The reduced mamba2-2.7b and zamba2-7b through ``params_from_reference``:
+  ``forward`` against the reference's and against a prefill and one
+  decode step (``test_arch_smoke.py::test_decode_matches_forward``);
   an 80-token prompt (ragged at the reduced chunk of 32), then 8 decode
   steps, logits within ``1e-4`` and greedy tokens identical, as
   ``tests/test_torch_models.py`` does for qwen3.  The reference initialises
@@ -29,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import repro
 import repro_torch
@@ -36,6 +45,7 @@ from repro.configs import get_config as jax_get_config
 from repro.kernels import ops as jax_ops
 from repro.kernels.ssd_scan import ssd_scan_ref as jax_ssd_scan_ref
 from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models import ssm as jax_ssm
@@ -46,14 +56,20 @@ from repro_torch.kernels import launch_counts, ops
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models import (build_decode_graph, cache_struct, decode_step,
-                                greedy_sample, init_params, make_decode_state,
-                                n_attn_slots, params_from_reference, prefill,
-                                zeros_cache)
-from repro_torch.models.lm import layer_flags, padded_vocab
+                                forward, greedy_sample, init_params,
+                                make_decode_state, n_attn_slots,
+                                params_from_reference, prefill, zeros_cache)
+from repro_torch.models.lm import layer_flags, logits_from_hidden, padded_vocab
 from repro_torch.models.ssm import _causal_conv, ssd_chunked
 from repro_torch.serving import ContinuousBatchingEngine, PoissonWorkload
 
 RTOL = ATOL = 1e-4
+#: the scan's gradients, float32 against float32 (the reference's, or
+#: float64 autograd for the float32 port): the same products summed in
+#: another order, at most a few float32 units of each leaf's largest entry
+#: per term over sums of L N terms; 1e-4 of that entry, as
+#: tests/test_torch_train.py's GRAD_RTOL
+SCAN_GRAD_RTOL = 1e-4
 PROMPT, STEPS, BATCH = 80, 8, 2
 ARCHS = ("mamba2-2.7b", "zamba2-7b")
 
@@ -121,21 +137,6 @@ def test_ssd_scan_checks_its_inputs():
         ops.ssd_scan(xdt, cs.double(), Bm, Cm)
     with pytest.raises(TypeError, match="Bm is torch.bfloat16"):
         ops.ssd_scan(xdt, cs, Bm.bfloat16(), Cm)
-
-
-def test_ssd_scan_refuses_inputs_that_require_grad():
-    """No backward (ROADMAP Queue A item A11b): with grad on, an input that
-    requires grad raises before the device dispatch (the same on either
-    device); under ``no_grad`` the scan runs."""
-    xdt, cs, Bm, Cm = (torch.from_numpy(x) for x in
-                       _scan_inputs(1, 2, 8, 2, 4, 4, seed=3))
-    for i in range(4):
-        args = [xdt, cs, Bm, Cm]
-        args[i] = args[i].clone().requires_grad_()
-        with pytest.raises(RuntimeError, match="no backward"):
-            ss.ssd_scan(*args)
-        with torch.no_grad():
-            assert ss.ssd_scan(*args)[0].shape == xdt.shape
 
 
 def _kernel_passes(xdt, cs, Bm, Cm):
@@ -285,6 +286,177 @@ def test_causal_conv_matches_the_reference(T, with_state):
 
 
 # ---------------------------------------------------------------------------
+# the SSD scan's gradient
+def _assert_grads_close(got, want, names, what):
+    """Each gradient within SCAN_GRAD_RTOL of its leaf's largest entry, and
+    finite."""
+    for name, g, w in zip(names, got, want):
+        g, w = _np(g).astype(np.float64), np.asarray(w, dtype=np.float64)
+        assert np.isfinite(g).all(), f"{what}: d{name} is not finite"
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=0, atol=SCAN_GRAD_RTOL * scale,
+                                   err_msg=f"{what}: d{name}")
+
+
+def _chunked_inputs(B, T, H, N, P, *, seed, dt_scale=0.1, a=None):
+    """xs, dt, a, Bm, Cm of ``ssd_chunked`` as an SSM layer makes them
+    (silu'd x, B and C; dt = softplus(dt_scale N(0, 1) + 0.5)), float32
+    numpy; ``a`` defaults to rates around -0.3."""
+    rng = np.random.default_rng(seed)
+
+    def silu(x):
+        return x / (1.0 + np.exp(-x))
+
+    xs = silu(rng.standard_normal((B, T, H, P)))
+    dt = np.log1p(np.exp(dt_scale * rng.standard_normal((B, T, H)) + 0.5))
+    if a is None:
+        a = -0.3 * np.exp(0.3 * rng.standard_normal(H))
+    Bm, Cm = silu(rng.standard_normal((B, T, N))), silu(
+        rng.standard_normal((B, T, N)))
+    return [np.asarray(x, dtype=np.float32) for x in (xs, dt, a, Bm, Cm)]
+
+
+def _ssd_chunked_f64(xs, dt, a, Bm, Cm, *, chunk):
+    """``ssd_chunked`` in float64: ``ssd_scan_inputs``' padding, cumulative
+    sum and ``xs * dt`` written out in float64, then the plain scan, which
+    runs float64 inputs in float64 (its ``where`` after the ``exp`` is safe
+    there: ``exp(cs_i - cs_j)`` stays finite to 709)."""
+    Bsz, T, H, P = xs.shape
+    N = Bm.shape[-1]
+    L = min(chunk, T)
+    nc = -(-T // L)
+    pad = nc * L - T
+    xs = F.pad(xs, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, L, H, P)
+    dt = F.pad(dt, (0, 0, 0, pad)).reshape(Bsz, nc, L, H)
+    Bm = F.pad(Bm, (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    Cm = F.pad(Cm, (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    y, s = ssd_scan_ref(xs * dt[..., None], torch.cumsum(dt * a, dim=2),
+                        Bm, Cm)
+    return y.reshape(Bsz, nc * L, H, P)[:, :T], s
+
+
+def _weights(shape_y, shape_s, seed, with_final):
+    rng = np.random.default_rng(seed)
+    wy = rng.standard_normal(shape_y).astype(np.float32)
+    ws = (rng.standard_normal(shape_s).astype(np.float32) if with_final
+          else np.zeros(shape_s, np.float32))
+    return wy, ws
+
+
+def _port_chunked_grads(arrays, wy, ws, chunk, dtype=torch.float32):
+    """The gradients of sum(y * wy) + sum(final * ws) with respect to xs,
+    dt, a, Bm and Cm, through the port's ``ssd_chunked`` (float32, the
+    scan's Function) or ``_ssd_chunked_f64`` (float64 autograd).  With
+    ``ws`` zero the final state is left out of the loss, so its gradient
+    reaches the Function as None."""
+    leaves = [torch.from_numpy(x).to(dtype).requires_grad_() for x in arrays]
+    fn = ssd_chunked if dtype == torch.float32 else _ssd_chunked_f64
+    y, s = fn(*leaves, chunk=chunk)
+    loss = (y * torch.from_numpy(wy).to(dtype)).sum()
+    if ws.any():
+        loss = loss + (s * torch.from_numpy(ws).to(dtype)).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+def _jax_chunked_grads(arrays, wy, ws, chunk):
+    def loss(*args):
+        y, s = jax_ssm.ssd_chunked(*args, chunk=chunk)
+        return jnp.sum(y * wy) + jnp.sum(s * ws)
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+        *(jnp.asarray(x) for x in arrays))
+
+
+CHUNKED_NAMES = ("xs", "dt", "a", "Bm", "Cm")
+
+
+@pytest.mark.parametrize("B,T,H,N,P,chunk,with_final", [
+    (1, 96, 3, 8, 16, 32, False),          # three chunks, the state unused
+    (2, 80, 2, 8, 16, 32, True),           # ragged, B > 1, a state gradient
+    (2, 20, 3, 4, 8, 32, True),            # one short chunk, L = T
+])
+def test_ssd_chunked_gradients_match_jax_grad_and_float64(B, T, H, N, P,
+                                                          chunk, with_final):
+    """``ssd_chunked``'s gradients through the scan's Function (and the
+    padding, cumulative sum and casts around it) against ``jax.grad`` of
+    the reference's ``ssd_chunked`` and against autograd through its
+    float64 formulation, where the reference is finite (decay rates near
+    -0.3: a chunk's decay stays far below 88)."""
+    arrays = _chunked_inputs(B, T, H, N, P, seed=6)
+    wy, ws = _weights((B, T, H, P), (B, H, N, P), 7, with_final)
+    got = _port_chunked_grads(arrays, wy, ws, chunk)
+    ref = _jax_chunked_grads(arrays, wy, ws, chunk)
+    f64 = _port_chunked_grads(arrays, wy, ws, chunk, torch.float64)
+    assert all(np.isfinite(np.asarray(r)).all() for r in ref)
+    _assert_grads_close(got, ref, CHUNKED_NAMES, "port vs jax.grad")
+    _assert_grads_close(got, f64, CHUNKED_NAMES, "port vs float64")
+    assert launch_counts()["ssd_scan"] == 0          # CPU: the plain version
+
+
+@pytest.mark.parametrize("B,nc,L,H,N,P,steep,pad", [
+    (2, 3, 32, 4, 16, 32, False, 0),
+    (1, 3, 32, 4, 16, 32, False, 16),      # a padded last chunk
+    (1, 2, 64, 2, 8, 16, True, 0),         # steep, but below exp's overflow
+])
+def test_ssd_scan_gradients_match_jax_grad_and_float64(B, nc, L, H, N, P,
+                                                      steep, pad):
+    """``SSDScanFn`` on the kernel's layout against ``jax.grad`` of the
+    reference's ``ssd_scan_ref`` and against autograd through the float64
+    plain version, with gradients of both y and the final state;
+    ``ssd_scan_bwd`` in float64 is that autograd to rounding."""
+    arrays = _scan_inputs(B, nc, L, H, N, P, seed=8, steep=steep, pad=pad)
+    wy, ws = _weights((B, nc, L, H, P), (B, H, N, P), 9, True)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    y, s = ss.ssd_scan(*leaves)
+    got = torch.autograd.grad((y * torch.from_numpy(wy)).sum()
+                              + (s * torch.from_numpy(ws)).sum(), leaves)
+
+    def loss(*args):
+        y, s = jax_ssd_scan_ref(*args)
+        return jnp.sum(y * wy) + jnp.sum(s * ws)
+    ref = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+        *(jnp.asarray(x) for x in arrays))
+    d64 = [torch.from_numpy(x).double().requires_grad_() for x in arrays]
+    y, s = ssd_scan_ref(*d64)
+    dy, dfinal = torch.from_numpy(wy).double(), torch.from_numpy(ws).double()
+    f64 = torch.autograd.grad((y * dy).sum() + (s * dfinal).sum(), d64)
+    names = ("xdt", "cs", "Bm", "Cm")
+    _assert_grads_close(got, ref, names, "port vs jax.grad")
+    _assert_grads_close(got, f64, names, "port vs float64")
+    exact = ss.ssd_scan_bwd(*(t.detach() for t in d64), dy, dfinal)
+    for name, g, w in zip(names, exact, f64):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+
+
+def test_ssd_gradient_is_finite_where_the_reference_is_nan():
+    """The reference's fault (ROADMAP Queue C item C7): past a chunk decay
+    of ~88, ``exp(cs_i - cs_j)`` above the diagonal overflows, and
+    ``where(mask, exp(diff), 0)``'s gradient multiplies that inf by 0, so
+    ``jax.grad`` of ``ssd_chunked`` gives NaN in dt's and a's gradients
+    (xs's, Bm's and Cm's stay finite).  The port masks before the exp: its
+    gradients are all finite, equal to the float64 formulation's (where
+    the overflow never happens) and to the reference's where that is
+    finite.  Chunk 128, as published, with a = -1 and step sizes near
+    0.97: a chunk decays by ~124."""
+    chunk, B, T, H, N, P = 128, 1, 256, 2, 8, 16
+    arrays = _chunked_inputs(B, T, H, N, P, seed=10,
+                             a=-np.ones(H, np.float32))
+    decay = -np.cumsum(arrays[1] * arrays[2], axis=1)
+    assert decay[:, chunk - 1].min() > 88 and decay[:, T - 1].min() > 176
+    wy, ws = _weights((B, T, H, P), (B, H, N, P), 11, True)
+    ref = [np.asarray(r) for r in _jax_chunked_grads(arrays, wy, ws, chunk)]
+    assert not np.isfinite(ref[1]).all() and not np.isfinite(ref[2]).all()
+    for i in (0, 3, 4):
+        assert np.isfinite(ref[i]).all()
+    got = _port_chunked_grads(arrays, wy, ws, chunk)
+    f64 = _port_chunked_grads(arrays, wy, ws, chunk, torch.float64)
+    _assert_grads_close(got, f64, CHUNKED_NAMES, "port vs float64")
+    for i in (0, 3, 4):
+        _assert_grads_close([got[i]], [ref[i]], [CHUNKED_NAMES[i]],
+                            "port vs jax.grad where finite")
+
+
+# ---------------------------------------------------------------------------
 # the reduced models
 def ssm_reference_tree(cfg, seed: int = 0):
     """The reference's initial parameters as numpy, with every 1-D leaf
@@ -391,6 +563,29 @@ def test_prefill_and_decode_match_the_reference(pair):
                                   np.concatenate(jtoks, 1))
     # the streams are not degenerate: the random leaves give real logits
     assert len(np.unique(torch.cat(toks, 1).numpy())) > 1
+
+
+def test_decode_matches_forward_and_the_reference(pair):
+    """The port of ``tests/test_arch_smoke.py::test_decode_matches_forward``:
+    a prefill of ``PROMPT - 1`` tokens and one decode step give the logits
+    of ``forward`` over all ``PROMPT`` at the last position (the chunked
+    scan against the recurrent step), within ``RTOL``; and ``forward``'s
+    hidden states equal the reference's (scoring, no gradient)."""
+    cfg, tcfg, model, jparams = pair
+    tokens = _prompt(cfg)
+    s0 = PROMPT - 1
+    cache, _ = prefill(model, tcfg, {"tokens": tokens[:, :s0]},
+                       max_len=PROMPT + 1)
+    _, dec = decode_step(model, tcfg, cache,
+                         torch.from_numpy(tokens[:, s0:]).long())
+    with torch.no_grad():
+        h = forward(model, tcfg, {"tokens": tokens})
+        full = logits_from_hidden(model, tcfg, h)
+    assert h.shape == (BATCH, PROMPT, tcfg.d_model)
+    np.testing.assert_allclose(_np(dec[:, 0]), _np(full[:, s0]), rtol=RTOL,
+                               atol=ATOL)
+    jh = jax_forward(jparams, cfg, {"tokens": jnp.asarray(tokens)}, None)
+    np.testing.assert_allclose(_np(h), _np(jh), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -3,24 +3,27 @@
 * ``lm.loss_fn`` and every parameter's gradient against
   ``jax.value_and_grad(repro.models.lm.loss_fn)`` at float32 on reduced
   qwen3-14b (dense), qwen3-moe-235b-a22b (tokens dropped at capacity),
-  seamless-m4t-medium (encdec) and llama-3.2-vision-11b (vlm), with masked
-  labels, on one numpy tree both packages load
+  seamless-m4t-medium (encdec), llama-3.2-vision-11b (vlm), mamba2-2.7b
+  (ssm) and zamba2-7b (hybrid, the shared block run by both layers), with
+  masked labels, on one numpy tree both packages load
   (``test_torch_moe.reference_tree``: the reference's zero norm scales and
-  ``xgate`` set near one and 0.8, or most gradients would be zero);
+  ``xgate`` set near one and 0.8, or most gradients would be zero; for the
+  SSM families ``a_log`` and ``dt_bias`` redrawn, see :func:`ssm_tree`);
   ``remat=True`` against ``remat=False``;
 * AdamW (``adamw_update``, ``clip_by_global_norm``, ``lr_schedule``)
   against the reference's, with clipping active, over float32 and
   bfloat16 parameters;
 * three train steps (``single``; ``serial`` and ``hybrid`` with 4
   microbatches; ``hybrid`` with ``compress_grads``) against the
-  reference's jitted steps from the same parameters and batches;
+  reference's jitted steps from the same parameters and batches, and
+  ``single``, ``serial`` and ``hybrid`` on reduced mamba2 and zamba2;
 * ``SyntheticLMData.batch_at`` bit for bit;
 * the trainer: the loss falls, a restart resumes, a preemption
   checkpoints (the ports of ``tests/test_train_substrate.py``'s tests);
+  reduced mamba2 trains;
 * 40 steps at the reference example's schedule from the reference's fresh
   tree and from the port's, in both packages (``torch_lr_witness``);
-* the ssm and hybrid families refuse to train (ROADMAP Queue A item
-  A11b), and the entry points raise without CUDA unless given the CPU.
+* the entry points raise without CUDA unless given the CPU.
 
 Tolerances: XLA and PyTorch sum the same float32 products in other
 orders.  The loss agrees to ``rtol = 1e-5``; each gradient leaf to
@@ -77,8 +80,17 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 STEP_ATOL = 1e-6
 STEP_OUTLIERS = 1e-3
+#: a clipped step-1 gradient this close to zero (100 Adam eps) may move
+#: its parameter by a rounding-decided part of lr: g / (|g| + eps) is
+#: within 1% of +-1 only beyond it
+EPS_BAND = 1e-6
 ARCHS = ("qwen3-14b", "qwen3-moe-235b-a22b", "seamless-m4t-medium",
-         "llama-3.2-vision-11b")
+         "llama-3.2-vision-11b", "mamba2-2.7b", "zamba2-7b")
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-7b")
+#: per-arch cuts beyond ``reduced(n_layers=2)``: zamba2 runs its shared
+#: block in both layers (``attn_every = 1``), so that block's gradient
+#: gathers two uses
+CUTS = {"zamba2-7b": dict(attn_every=1)}
 
 
 def _flat(tree, prefix=()):
@@ -120,6 +132,31 @@ def _batch(cfg, B=2, S=24, seed=5, frames=20):
     return batch
 
 
+def ssm_tree(jcfg, seed: int = 0):
+    """``reference_tree`` with every layer's ``a_log`` and ``dt_bias``
+    redrawn at ``0.1 N(0, 1)`` (numpy seed 7).  ``reference_tree`` draws
+    1-D leaves near one, so a ~ -e and dt ~ 1.3: a 32-step chunk decays by
+    ~110, past the ~88 where the reference's ``ssd_chunked`` gradient turns
+    NaN (``repro/models/ssm.py:92``, ROADMAP Queue C item C7;
+    ``test_torch_ssm.test_ssd_gradient_is_finite_where_the_reference_is_nan``
+    shows it), and 15 of mamba2's 24 leaves would have no finite reference
+    to compare with.  At 0.1 N(0, 1) a ~ -1, dt ~ 0.7, and a chunk decays
+    by ~22."""
+    tree = reference_tree(jcfg, seed=seed)
+    rng = np.random.default_rng(7)
+    for name in ("a_log", "dt_bias"):
+        x = tree["blocks"]["ssm"][name]
+        tree["blocks"]["ssm"][name] = (
+            0.1 * rng.standard_normal(x.shape)).astype(x.dtype)
+    return tree
+
+
+def _cfgs(arch, **kw):
+    """(reference cfg, port cfg), reduced to 2 layers with ``CUTS``."""
+    kw = {"n_layers": 2, **CUTS.get(arch, {}), **kw}
+    return jax_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
+
+
 def _port_value_and_grad(model, cfg, batch, remat):
     model.requires_grad_(True)
     loss = loss_fn(model, cfg, batch, remat=remat)
@@ -134,10 +171,12 @@ def loss_pair(request):
     """(port cfg, reference tree, batch, reference loss, reference grads by
     port name) for one reduced two-layer model."""
     arch = request.param
-    jcfg = jax_get_config(arch).reduced(n_layers=2)
-    cfg = get_config(arch).reduced(n_layers=2)
-    tree = reference_tree(jcfg)
-    batch = _batch(cfg)
+    jcfg, cfg = _cfgs(arch)
+    ssm = arch in SSM_ARCHS
+    tree = ssm_tree(jcfg) if ssm else reference_tree(jcfg)
+    # the SSM families at 64 tokens: two of the reduced 32-step chunks, so
+    # the state carried from one to the next takes part
+    batch = _batch(cfg, S=64 if ssm else 24)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     loss, grads = jax.value_and_grad(
         lambda p: jax_lm.loss_fn(p, jcfg, jb, None, remat=True))(
@@ -213,7 +252,7 @@ def test_forward_without_grad_matches_eval_step(loss_pair):
     np.testing.assert_allclose(float(loss), ref_loss, rtol=LOSS_RTOL)
     with torch.no_grad():
         h = forward(model, cfg, batch)
-    assert h.shape == (2, 24, cfg.d_model)
+    assert h.shape == batch["tokens"].shape + (cfg.d_model,)
 
 
 def test_ce_loss_masks_padded_vocabulary_and_negative_labels():
@@ -237,15 +276,20 @@ def test_ce_loss_masks_padded_vocabulary_and_negative_labels():
         sharded_ce_loss(h, w, labels, cfg, ctx=object())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
-def test_ssm_families_refuse_to_train(arch):
-    cfg = get_config(arch).reduced()
-    model = init_params(cfg, device="cpu")
-    batch = _batch(cfg)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        loss_fn(model, cfg, batch)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        forward(model, cfg, batch, remat=False)
+def test_hybrid_shared_block_gathers_a_gradient_from_each_use():
+    """zamba2's shared block runs in both layers (``CUTS``): a gradient
+    arrives at its output twice, each non-zero, and its parameters' grads
+    are their sum (held against the reference by the test above)."""
+    jcfg, cfg = _cfgs("zamba2-7b")
+    model = params_from_reference(cfg, ssm_tree(jcfg), device="cpu")
+    arrived = []
+
+    def hook(mod, args, out):
+        out[0].register_hook(lambda g: arrived.append(g.abs().max().item()))
+
+    model.shared.register_forward_hook(hook)
+    _port_value_and_grad(model, cfg, _batch(cfg, S=64), remat=False)
+    assert len(arrived) == 2 and min(arrived) > 0, arrived
 
 
 def test_abstract_params_are_shapes_on_the_meta_device():
@@ -393,25 +437,40 @@ STEP_VARIANTS = {
 }
 
 
-@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
-def test_three_train_steps_match_the_reference(variant):
-    jcfg, cfg = tiny_cfgs()
-    tree = reference_tree(jcfg, seed=1)
+def _three_steps_against_the_reference(jcfg, cfg, tree, step_kw, data_kw,
+                                       eps_band: bool = False):
+    """Three steps of the reference's jitted train step and of the port's
+    from ``tree`` on ``SyntheticLMData(data_kw)``'s first batches: each
+    step's loss and gradient norm agree, and so do the parameters after
+    (``STEP_ATOL``, ``STEP_OUTLIERS``, two summed learning rates).
+
+    With ``eps_band``, the parameters are also held after step 1: every
+    element more than ``STEP_ATOL`` from the reference's is one whose
+    clipped step-1 gradient (the reference's, over the whole batch) lies
+    within ``EPS_BAND`` of zero, where Adam's first update ``g / (|g| +
+    eps)`` turns the gradient's rounding into up to a whole ``lr``; the
+    port then takes the reference's parameters (its own ``m`` and ``v``
+    stay) and runs steps 2 and 3 from them."""
     kw = dict(lr=1e-3, warmup_steps=1, total_steps=10, clip_norm=1.0)
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                      global_batch=8, seed=3))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, **data_kw))
     batches = [data.batch_at(s) for s in range(3)]
     jstep = jax.jit(jax_make_train_step(
-        jcfg, JaxAdamWConfig(**kw), None,
-        JaxStepConfig(**STEP_VARIANTS[variant])))
+        jcfg, JaxAdamWConfig(**kw), None, JaxStepConfig(**step_kw)))
     jp = jax.tree.map(jnp.asarray, tree)
     jst = jax_adamw_init(jp)
     model = params_from_reference(cfg, tree, device="cpu")
     state = adamw_init(model)
-    step = make_train_step(cfg, AdamWConfig(**kw), None,
-                           StepConfig(**STEP_VARIANTS[variant]))
+    step = make_train_step(cfg, AdamWConfig(**kw), None, StepConfig(**step_kw))
+    if eps_band:
+        jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
+        g = _by_port_name(cfg, jax.grad(
+            lambda p: jax_lm.loss_fn(p, jcfg, jb, None))(jp))
+        norm = np.sqrt(sum(np.sum(np.square(x, dtype=np.float64))
+                           for x in g.values()))
+        clipped = {n: np.abs(x) * min(1.0, kw["clip_norm"] / norm)
+                   for n, x in g.items()}
     lr_sum = 0.0
-    for b in batches:
+    for i, b in enumerate(batches):
         jp, jst, jm = jstep(jp, jst, {k: jnp.asarray(v) for k, v in b.items()})
         model, state, m = step(model, state, b)
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
@@ -419,12 +478,55 @@ def test_three_train_steps_match_the_reference(variant):
         np.testing.assert_allclose(float(m["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-4)
         lr_sum += float(jm["lr"])
+        if eps_band and i == 0:
+            ref = _by_port_name(cfg, jp)
+            apart = total = 0
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    far = np.abs(p.numpy() - ref[n]) > STEP_ATOL
+                    assert (clipped[n][far] <= EPS_BAND).all(), (
+                        n, clipped[n][far].max())
+                    apart += int(far.sum())
+                    total += far.size
+                    p.copy_(torch.from_numpy(np.array(ref[n])))
+            assert apart <= STEP_OUTLIERS * total, (apart, total)
     ref = _by_port_name(cfg, jp)
     diff = np.concatenate([np.abs(p.detach().numpy() - ref[n]).ravel()
                            for n, p in model.named_parameters()])
     assert diff.max() <= 2 * lr_sum, diff.max()
     assert (diff > STEP_ATOL).mean() <= STEP_OUTLIERS, \
         (int((diff > STEP_ATOL).sum()), diff.size)
+
+
+@pytest.mark.parametrize("variant", sorted(STEP_VARIANTS))
+def test_three_train_steps_match_the_reference(variant):
+    jcfg, cfg = tiny_cfgs()
+    _three_steps_against_the_reference(
+        jcfg, cfg, reference_tree(jcfg, seed=1), STEP_VARIANTS[variant],
+        dict(seq_len=32, global_batch=8, seed=3))
+
+
+@pytest.mark.parametrize("variant", ["single", "serial", "hybrid"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_three_ssm_train_steps_match_the_reference(arch, variant):
+    """The same on reduced mamba2 and zamba2 (2 layers, ``CUTS``: zamba2's
+    shared block in both; 64 tokens: two chunks), serial and hybrid in 2
+    microbatches, with step 1 held on its own (``eps_band``).
+
+    Run freely from step 1, zamba2 with two uses carries the few
+    parameters step 1 leaves apart (55 of 505,264 in ``single``, each with
+    a clipped gradient of at most 2.4e-7) into 1.19% of the parameters
+    more than ``STEP_ATOL`` from the reference's after step 3 (at one use
+    0.014%, mamba2 0.009%); with just those step-1 parameters taken from
+    the reference, 4e-6, and each step from the reference's parameters and
+    Adam state lands on the reference's next parameters with none apart
+    (``tests/torch_step_witness.py``)."""
+    jcfg, cfg = _cfgs(arch)
+    step_kw = {"single": dict(microbatches=1)}.get(
+        variant, dict(microbatches=2, overlap=variant))
+    _three_steps_against_the_reference(
+        jcfg, cfg, ssm_tree(jcfg, seed=1), step_kw,
+        dict(seq_len=64, global_batch=4, seed=3), eps_band=True)
 
 
 def test_serial_and_hybrid_steps_give_the_same_bits():
@@ -494,11 +596,11 @@ def test_data_prefetch_iterator_resumes_at_a_step():
 
 # ---------------------------------------------------------------------------
 # the trainer (ports of tests/test_train_substrate.py)
-def _mk_trainer(tmp_path, steps, ckpt_every=50, cfg=None):
+def _mk_trainer(tmp_path, steps, ckpt_every=50, cfg=None, lr=1e-2):
     cfg = cfg or tiny_cfgs()[1]
     return Trainer(
         cfg,
-        AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=steps, clip_norm=1.0),
+        AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps, clip_norm=1.0),
         TrainerConfig(steps=steps, ckpt_every=ckpt_every,
                       ckpt_dir=str(tmp_path), log_every=5),
         DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
@@ -572,6 +674,30 @@ def test_trainer_adds_zero_memory_for_cross_families(tmp_path, arch):
     assert np.isfinite(out["metrics"][-1]["loss"])
 
 
+def test_trainer_trains_reduced_mamba2(tmp_path):
+    """The trainer on reduced mamba2 (4 layers, d 128) from the port's
+    seed-0 start, 30 steps of 8 x 32 tokens at a peak rate of 1e-3:
+    every logged loss finite, and the loss of one held-out batch lower
+    after than before (the same batch both times: the logged losses of
+    single batches move more from batch to batch than the model learns in
+    30 steps).  At the dense trainer tests' 1e-2 the held-out loss rises
+    in both packages from this tree and stream (the reference's 6.344 ->
+    6.404, the port's -> 6.352; at 1e-3 6.300 and 6.301:
+    ``tests/torch_lr_witness.py --arch mamba2-2.7b --cut '{}' --lr 1e-2
+    --warmup 5 --steps 30 --seq 32 --batch 8 --micro 1 --data-seed 3
+    --inits port``)."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    trainer = _mk_trainer(tmp_path, steps=30, cfg=cfg, lr=1e-3)
+    held = trainer.data.batch_at(1_000_000)
+    evaluate = make_eval_step(cfg)
+    before = float(evaluate(init_params(cfg, seed=0, device="cpu"), held))
+    out = trainer.run()
+    assert out["final_step"] == 30
+    assert all(np.isfinite(m["loss"]) for m in out["metrics"])
+    after = float(evaluate(out["params"], held))
+    assert after < before, (before, after)
+
+
 def test_train_lm_runs_the_reference_example_on_the_cpu(tmp_path, capsys):
     out = train_lm.main(["--device", "cpu", "--steps", "10", "--batch", "4",
                          "--seq", "32", "--ckpt", str(tmp_path)])
@@ -611,7 +737,8 @@ def test_example_schedule_trajectory_is_the_references(init):
     got = trajectories(jcfg, cfg, 40, data_kw=dict(seq_len=32,
                                                    global_batch=8, seed=0),
                        inits=(init,))[init]
-    (ref_losses, ref_held), (losses, held) = got["reference"], got["port"]
+    (ref_losses, ref_held, _), (losses, held, _) = (got["reference"],
+                                                   got["port"])
     assert len(losses) == 40
     np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
     np.testing.assert_allclose(held, ref_held, rtol=LOSS_RTOL)

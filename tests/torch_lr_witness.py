@@ -21,8 +21,19 @@ run it at the example's ``100m`` width, cut in depth, with::
 
     PYTHONPATH=src:tests python tests/torch_lr_witness.py --layers 2
 
+``--arch`` runs another configuration's ``reduced`` cut instead (widths
+and depth from ``--cut``, a JSON object), at a schedule, stream and
+microbatch count of one's choosing; ``chip_smoke.train_step_phase``'s SSM
+train steps, narrowed for the CPU, with::
+
+    PYTHONPATH=src:tests python tests/torch_lr_witness.py \
+        --arch zamba2-7b --cut '{"n_layers": 12, "d_model": 896, ...}' \
+        --lr 1e-3 --warmup 2 --steps 8 --seq 256 --batch 4 --micro 2 \
+        --inits port
+
 It prints one JSON object per (initialisation, package) with the loss of
-every step and the loss of a held-out batch before and after.
+every step and the loss of a held-out batch before and after, and the
+mean loss of the trained batches before and after.
 """
 
 from __future__ import annotations
@@ -68,6 +79,13 @@ def example_cfgs(scale: str = "100m", **cut):
             get_config("deepseek-67b").reduced(**kw))
 
 
+def arch_cfgs(arch: str, **cut):
+    """``arch``'s ``reduced`` configuration in both packages, with
+    ``cut``."""
+    return (jax_get_config(arch).reduced(**cut),
+            get_config(arch).reduced(**cut))
+
+
 def reference_init_tree(jcfg, seed: int = 0):
     """The reference's fresh tree, as numpy."""
     return jax.tree.map(np.asarray,
@@ -101,28 +119,32 @@ def _batches(cfg, steps, data_kw):
 
 
 def reference_losses(jcfg, tree, steps, opt_kw, data_kw, micro):
-    """(per-step losses, held-out loss before and after) of the
-    reference's jitted hybrid step from ``tree``."""
+    """(per-step losses, held-out loss before and after, the trained
+    batches' mean loss before and after) of the reference's jitted hybrid
+    step from ``tree``."""
     batches, held = _batches(jcfg, steps, data_kw)
     step = jax.jit(jax_make_train_step(
         jcfg, JaxAdamWConfig(**opt_kw), None,
         JaxStepConfig(microbatches=micro, overlap="hybrid")))
-    held_j = {k: jnp.asarray(v) for k, v in held.items()}
-    evaluate = jax.jit(lambda p: jax_lm.loss_fn(p, jcfg, held_j, None))
+    evaluate = jax.jit(lambda p, b: jax_lm.loss_fn(p, jcfg, b, None))
     params = jax.tree.map(jnp.asarray, tree)
     state = jax_adamw_init(params)
-    before = float(evaluate(params))
+    held_j = {k: jnp.asarray(v) for k, v in held.items()}
+    jbs = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
+    before = float(evaluate(params, held_j))
+    trained = [np.mean([float(evaluate(params, b)) for b in jbs])]
     losses = []
-    for b in batches:
-        params, state, m = step(params, state,
-                                {k: jnp.asarray(v) for k, v in b.items()})
+    for b in jbs:
+        params, state, m = step(params, state, b)
         losses.append(float(m["loss"]))
-    return losses, [before, float(evaluate(params))]
+    trained.append(np.mean([float(evaluate(params, b)) for b in jbs]))
+    return losses, [before, float(evaluate(params, held_j))], trained
 
 
 def port_losses(jcfg, cfg, tree, steps, opt_kw, data_kw, micro):
-    """(per-step losses, held-out loss before and after) of the port's
-    hybrid step from ``tree``, on the CPU."""
+    """(per-step losses, held-out loss before and after, the trained
+    batches' mean loss before and after) of the port's hybrid step from
+    ``tree``, on the CPU."""
     batches, held = _batches(cfg, steps, data_kw)
     model = params_from_reference(cfg, tree, device="cpu")
     state = adamw_init(model)
@@ -130,16 +152,19 @@ def port_losses(jcfg, cfg, tree, steps, opt_kw, data_kw, micro):
                            StepConfig(microbatches=micro, overlap="hybrid"))
     evaluate = make_eval_step(cfg)
     before = float(evaluate(model, held))
+    trained = [np.mean([float(evaluate(model, b)) for b in batches])]
     losses = []
     for b in batches:
         model, state, m = step(model, state, b)
         losses.append(float(m["loss"]))
-    return losses, [before, float(evaluate(model, held))]
+    trained.append(np.mean([float(evaluate(model, b)) for b in batches]))
+    return losses, [before, float(evaluate(model, held))], trained
 
 
 def trajectories(jcfg, cfg, steps, opt_kw=EXAMPLE_OPT, data_kw=EXAMPLE_DATA,
                  micro=EXAMPLE_MICRO, inits=("reference", "port")):
-    """{init: {package: (losses, held-out before/after)}}."""
+    """{init: {package: (losses, held-out before/after, trained batches
+    before/after)}}."""
     out = {}
     for init in inits:
         tree = (reference_init_tree(jcfg) if init == "reference"
@@ -156,30 +181,53 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=2,
                     help="depth of the 100m configuration (12 uncut)")
+    ap.add_argument("--arch", default=None,
+                    help="another configuration, cut by --cut")
+    ap.add_argument("--cut", default="{}",
+                    help="JSON overrides of --arch's reduced configuration")
     ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--lr", type=float, default=EXAMPLE_OPT["lr"])
+    ap.add_argument("--warmup", type=int,
+                    default=EXAMPLE_OPT["warmup_steps"])
+    ap.add_argument("--seq", type=int, default=EXAMPLE_DATA["seq_len"])
+    ap.add_argument("--batch", type=int, default=EXAMPLE_DATA["global_batch"])
+    ap.add_argument("--micro", type=int, default=EXAMPLE_MICRO)
+    ap.add_argument("--data-seed", type=int, default=EXAMPLE_DATA["seed"])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the initialisations' seed")
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--inits", nargs="+", default=["reference", "port"],
                     choices=["reference", "port"])
+    ap.add_argument("--packages", nargs="+", default=["reference", "port"],
+                    choices=["reference", "port"])
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
-    jcfg, cfg = example_cfgs(n_layers=args.layers)
-    opt_kw = dict(EXAMPLE_OPT, total_steps=args.steps)
+    if args.arch is None:
+        jcfg, cfg = example_cfgs(n_layers=args.layers)
+    else:
+        jcfg, cfg = arch_cfgs(args.arch, **json.loads(args.cut))
+    opt_kw = dict(EXAMPLE_OPT, lr=args.lr, warmup_steps=args.warmup,
+                  total_steps=args.steps)
+    data_kw = dict(seq_len=args.seq, global_batch=args.batch,
+                   seed=args.data_seed)
     for init in args.inits:
-        tree = (reference_init_tree(jcfg) if init == "reference"
-                else port_init_tree(jcfg, cfg))
-        for package in ("reference", "port"):
+        tree = (reference_init_tree(jcfg, args.seed) if init == "reference"
+                else port_init_tree(jcfg, cfg, args.seed))
+        for package in args.packages:
             t0 = time.perf_counter()
             if package == "reference":
-                losses, held = reference_losses(jcfg, tree, args.steps,
-                                                opt_kw, EXAMPLE_DATA,
-                                                EXAMPLE_MICRO)
+                losses, held, trained = reference_losses(
+                    jcfg, tree, args.steps, opt_kw, data_kw, args.micro)
             else:
-                losses, held = port_losses(jcfg, cfg, tree, args.steps,
-                                           opt_kw, EXAMPLE_DATA,
-                                           EXAMPLE_MICRO)
-            print(json.dumps({"init": init, "package": package,
-                              "layers": args.layers, "opt": opt_kw,
+                losses, held, trained = port_losses(
+                    jcfg, cfg, tree, args.steps, opt_kw, data_kw, args.micro)
+            print(json.dumps({"init": init, "seed": args.seed,
+                              "package": package,
+                              "arch": args.arch or "100m",
+                              "layers": cfg.n_layers, "opt": opt_kw,
+                              "data": data_kw, "micro": args.micro,
                               "losses": losses, "held_out_loss": held,
+                              "trained_batches_loss": trained,
                               "seconds": time.perf_counter() - t0}),
                   flush=True)
 
