@@ -72,10 +72,11 @@ Phases, each printed as one JSON line:
    the LU recording compiled (one ``scheduler="compiled"`` run) and QR at
    half the order recorded and compiled, each bit-identical to its
    dynamic factors with exact launches;
-7. the serving paths, each model at full width and depth in bfloat16,
-   random weights made on the card from seed 0, and freed before the
-   next: qwen3-14b (dense), zamba2-7b (hybrid: Mamba2 layers and a shared
-   attention block) and mamba2-2.7b (ssm).  For each, batch: four
+7. the serving paths, each model at full width in bfloat16, random
+   weights made on the card from seed 0, and freed before the next:
+   qwen3-14b (dense) at full depth, zamba2-7b (hybrid: Mamba2 layers and
+   a shared attention block) cut to 24 of its 81 layers and mamba2-2.7b
+   (ssm) cut to 32 of its 64 (``SERVE_ARCHS``).  For each, batch: four
    512-token prompts (numpy seed 1) prefilled by ``make_decode_state``
    and decoded 32 tokens each by ``build_decode_graph`` steps on
    ``Session(2)``, then again by the plain loop, one prompt at a time,
@@ -97,7 +98,7 @@ Phases, each printed as one JSON line:
 10. worker processes (``repro_torch.mp``), each process with its own CUDA
     context on the card.  Before the serving paths, a Cholesky sweep:
     ``Session(4, scheduler="replay", cache=GraphCache(dir),
-    procs=2).map(cholesky_digest_graph, ...)`` over 5 seeds at the
+    procs=2).map(cholesky_digest_graph, ...)`` over ``MP_SEEDS`` seeds at the
     Cholesky path's size; the builder (module-level here, so the children
     import it from this file) draws ``random_spd(n, seed)`` on the card
     and adds one sink task returning a digest of the factor (residual,
@@ -151,21 +152,41 @@ Phases, each printed as one JSON line:
     decode step against ``forward``'s position 511); the same two cuts'
     training loss and every gradient on the card against the host's plain
     versions from the same weights (``SSM_GRAD_CPU_RTOL``);
-    ``make_train_step`` as for qwen3-14b on mamba2-2.7b at full width and
-    depth and on zamba2-7b at full width cut to 12 of its 81 layers (scan
+    ``make_train_step`` as for qwen3-14b on mamba2-2.7b at full width cut
+    to 16 of its 64 layers and on zamba2-7b at full width cut to 12 of its
+    81 layers (scan
     launches layers x 2 microbatches x 2 a step, zamba2's flash 2 uses x 2
     x 2; the step-8 and held-out losses printed, not gated:
     HELD_OUT_GATED); every train step also prints each kind of leaf's
     gradient norm before the first step and after the last, the held-out
     batch's loss after every step and 8 held-out batches' mean loss; the
-    zamba2 cell again from two other draws of its weights
+    zamba2 cell again from another draw of its weights
     (``train_ssm_seed_witness``); then the ``Trainer`` at the reference
     example's 100m
     configuration, float32: 40 steps, checkpoints every 20, preempted at
     25 and restored at 25 by a new trainer whose batches equal an
     uninterrupted stream's; the loss falls; checkpoint bytes and save
     seconds;
-13. the script's seconds so far, a ``kernels`` summary line, then the
+13. the sharded paths (``sharding/``, ``launch/``): in the kernel phase
+    ``decode_lse`` (the decode kernel's log-sum-exp: the same output bits,
+    its lse against the plain version's, a cache cut into 2 and 4 slices
+    and merged against the uncut call, both timed); after qwen3-14b's
+    serving phases ``sharded_serve`` (that model through ``make_ctx`` on
+    an NCCL mesh of one rank, (1, 1), and under ``seq_shard_cache``: the
+    tokens and logits of ``ctx=None``, launches exact); after the train
+    step ``sharded_train_step`` (its cell through ``make_ctx``, FSDP on,
+    and ``grad_pspecs``: step 1 against ``ctx=None``'s, the same bits
+    twice, serial equal to hybrid, 16 flash launches a step, step ms and
+    the collectives a step) and ``sharded_two_ranks`` (two gloo processes
+    on the card: qwen3-14b and qwen3-moe-235b-a22b at full width cut to 2
+    layers, float32, on meshes (1, 2) and (2, 1), the loss and every
+    gradient against the single-rank run's, greedy tokens on (1, 2)); at
+    the end ``dryrun`` (a CPU subprocess started after the build: the
+    dry run of qwen3-14b's ``train_4k`` and ``decode_32k`` cells over a
+    fake group of 256 ranks with their H100 roofline terms, and the train
+    step's cell at mesh (1, 1), whose argument bytes must equal what
+    ``sharded_train_step`` held on the card);
+14. the script's seconds so far, a ``kernels`` summary line, then the
     device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -261,9 +282,16 @@ FLASH_P_ROUND = 2.0 ** -8
 #: limit).  The final state is float32 in both.
 SSD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
            torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
-#: the serving paths: (arch, whether it also serves the Poisson stream)
-SERVE_ARCHS = (("qwen3-14b", True), ("zamba2-7b", True),
-               ("mamba2-2.7b", False))
+#: the serving paths: (arch, whether it also serves the Poisson stream,
+#: layers (0: the published depth)).  qwen3-14b at full depth (the sharded
+#: serve runs on it); zamba2-7b cut from 81 to 24 layers (the shared block
+#: used 4 times of 13) and mamba2-2.7b from 64 to 32, to keep the script
+#: inside its time limit beside the sharded phases: at full depth the run
+#: took 1,260.9 s on a slower host (PERF.md, PR 22)
+SERVE_ARCHS = (("qwen3-14b", True, 0), ("zamba2-7b", True, 24),
+               ("mamba2-2.7b", False, 32))
+#: the worker-process Cholesky sweep's seeds (five before PR 22)
+MP_SEEDS = 3
 SERVE_WORKERS = 2                       # serve_lm's --workers default
 #: the model served again across two worker processes: zamba2-7b's three
 #: copies (the parent's, kept for the engine's rescue, and one per child)
@@ -279,10 +307,12 @@ POISSON = dict(rate=100.0, prompt_len=(256, 1024), max_new_tokens=(2, 8))
 #: 94 layers to 12: each layer holds 4.98 GB (the 128 experts 4.83 GB),
 #: and 12 layers with the untied embedding and unembedding (2.49 GB) take
 #: ~62 GB, which leaves room for the caches and a prefill on an 80 GB
-#: card, where 14 (72 GB) would not.  seamless-m4t-medium's decoder prompt
-#: is 16 tokens beside 1,000 encoder frames
+#: card, where 14 (72 GB) would not.  llama-3.2-vision-11b is cut from 40
+#: layers to 20 (4 of its 8 cross-attention layers) for time (PERF.md, PR
+#: 22).  seamless-m4t-medium's decoder prompt is 16 tokens beside 1,000
+#: encoder frames
 NEW_SERVE = (("qwen3-moe-235b-a22b", 12, PROMPT, 6),
-             ("llama-3.2-vision-11b", 0, PROMPT, 0),
+             ("llama-3.2-vision-11b", 20, PROMPT, 0),
              ("seamless-m4t-medium", 0, 16, 0))
 #: free device memory qwen3-moe's 12 layers need (~62 GB of weights, the
 #: float32 draw of one expert stack, caches and a prefill's activations)
@@ -1390,12 +1420,13 @@ BF16_ROUND = 2.0 ** -8
 #: and v) its 2.878 B parameters take 51.8 GB; 8 layers would take 75.6 GB
 TRAIN_ARCH, TRAIN_LAYERS = "qwen3-14b", 4
 #: the SSM and hybrid train steps (``train_step_ssm``), each at full width
-#: with ``train_step_phase``'s data, schedule and checks: mamba2-2.7b at its
-#: full 64 layers (2.703 B parameters, 48.6 GB at 18 bytes each) and
-#: zamba2-7b cut from 81 to 12 layers (the shared block used twice, at
-#: layers 5 and 11; 1.371 B parameters, 24.7 GB; all 81 would take 121.5
-#: GB)
-TRAIN_SSM = (("mamba2-2.7b", 64), ("zamba2-7b", 12))
+#: with ``train_step_phase``'s data, schedule and checks: mamba2-2.7b cut
+#: from 64 to 16 layers (its full depth, 2.703 B parameters at 18 bytes
+#: each, took 48.6 GB and ~82 s of the script; cut to make room for the
+#: sharded phases) and zamba2-7b cut from 81 to 12 layers (the shared
+#: block used twice, at layers 5 and 11; 1.371 B parameters, 24.7 GB; all
+#: 81 would take 121.5 GB)
+TRAIN_SSM = (("mamba2-2.7b", 16), ("zamba2-7b", 12))
 #: which train steps must also show step 8's loss below step 1's and the
 #: held-out batch's loss falling.  Every train step must lower the mean
 #: loss of the 8 batches it trained on (each evaluated before the first
@@ -1413,7 +1444,7 @@ TRAIN_SSM = (("mamba2-2.7b", 64), ("zamba2-7b", 12))
 HELD_OUT_GATED = ("qwen3-14b",)
 #: the cell whose 8 steps ``train_ssm_seed_witness`` repeats from other
 #: draws of its weights, and those draws' seeds
-SSM_SEED_WITNESS, SSM_WITNESS_SEEDS = ("zamba2-7b", 12), (1, 2)
+SSM_SEED_WITNESS, SSM_WITNESS_SEEDS = ("zamba2-7b", 12), (1,)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 4, 2, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
                  clip_norm=1.0)
@@ -1890,8 +1921,8 @@ def train_ssm_grad_vs_cpu_phase(smi) -> list:
 
 def train_step_ssm_phase(smi) -> dict:
     """``train_step_phase`` on each of TRAIN_SSM, each model freed before
-    the next: mamba2-2.7b at full width and depth, zamba2-7b at full width
-    cut to 12 layers; the rows by arch."""
+    the next: mamba2-2.7b at full width cut to 16 layers, zamba2-7b at
+    full width cut to 12 layers; the rows by arch."""
     return {arch: train_step_phase(smi, arch, layers, phase="train_step_ssm")
             for arch, layers in TRAIN_SSM}
 
@@ -3355,12 +3386,624 @@ def serving_mp_phase(cfg, model, n_requests: int, single_row: dict,
     return by_kernel
 
 
+# ---------------------------------------------------------------------------
+# the sharded paths (sharding/, launch/)
+# ---------------------------------------------------------------------------
+#: the decode kernel's log-sum-exp against the plain version's: both sum
+#: the same float32 exponentials, in other orders, and take one log; a sum
+#: of n positive float32 terms is off by at most n * 2**-24 of itself,
+#: which the log turns into an absolute error: 1,600 keys * 2**-24 < 1e-4
+LSE_TOL = 1e-4
+#: the (1, 1) train step against the ctx=None step: the loss's sums over
+#: 151,936 vocabulary columns and 4,096 tokens run in other orders (the
+#: sharded cross entropy's max and sum against torch.logsumexp), a float32
+#: relative error of about sqrt(V) * 2**-24 < 2.5e-5 each, below this
+SHARDED_LOSS_RTOL = 1e-4
+#: the two-rank runs' limit against the single-rank run of the same tree,
+#: per gradient leaf as the norm of the difference over the norm, in
+#: float32: the TP all-reduce adds two float32 partial sums where one
+#: product summed them all and the DP bucket adds two halves of the batch,
+#: a few float32 units of each sum (2**-24 each); 1e-4 leaves room for the
+#: softmax's and two layers' amplification.  (In bfloat16 the MoE's router
+#: logits, rounded to 8 bits, tie at the top-k boundary, and a product
+#: taken over half the tokens rounds them otherwise: a re-routed token
+#: moves its experts' gradients by percents, so the comparison runs in
+#: float32.)
+TWO_RANK_RTOL = dict(loss=1e-5, grad=1e-4)
+#: the two-rank phase's models, float32, full width cut to 2 layers, and
+#: their meshes: qwen3-14b on (1, 2) (TP) and (2, 1) (DP: the bucket's
+#: all-reduce, FSDP off); qwen3-moe-235b-a22b on (1, 2) (EP, the psum
+#: branch), with capacity_factor 8, which drops no token (per-shard
+#: capacity and the whole batch's would drop different ones: the
+#: reference's own test).  The MoE's (2, 1) meshes, FSDP on two ranks and
+#: the token gather (whose per-expert all-reduces each cross the host
+#: under gloo), run in the CPU tests.  The last field: whether the two
+#: ranks hold their references on the card at once (qwen3: 2 x 17.7 GB),
+#: or one after the other on the host (the MoE's float32 parameters and
+#: gradients take 48.8 GB)
+TWO_RANK_ARCHS = (("qwen3-14b", 2, {}, (((1, 2), {}), ((2, 1),
+                                                        {"fsdp": False})),
+                   True),
+                  ("qwen3-moe-235b-a22b", 2, {"capacity_factor": 8.0},
+                   (((1, 2), {}),), False))
+TWO_RANK_BATCH, TWO_RANK_SEQ, TWO_RANK_DECODE = 2, 256, 4
+#: the dry run's cells (a subprocess over a fake group of 256 ranks) and
+#: the train-step cell at mesh (1, 1) whose argument bytes the card holds
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", "single"),
+                ("qwen3-14b", "decode_32k", "single"))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """An NCCL process group of one rank on this card, destroyed on exit
+    (before any later phase spawns children)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def decode_lse_phase(smi) -> dict:
+    """``decode_attention(return_lse=True)`` at qwen3-14b's decode shape
+    (the served cache of 545 and a long one of 1,600; 40/8 heads, d 128,
+    bf16): its output has the bits of the call without lse, its lse is
+    within LSE_TOL of the plain version's, and the cache cut into 2 and 4
+    sequence slices, each attended by the kernel and merged by their lse
+    (``collectives.lse_merge``, the formula ``lse_combine`` all-reduces),
+    is within three bfloat16 roundings of the uncut call (each slice's
+    output, the merge's, the uncut output's); both calls timed."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models.layers import _local_window
+    from repro_torch.sharding.collectives import lse_merge
+
+    rows = []
+    for case, S, length, seed in (("served cache", PROMPT + TOKENS + 1,
+                                   PROMPT + TOKENS + 1, 50),
+                                  ("long cache", 1600, 1600, 51)):
+        rng = np.random.default_rng(seed)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(
+            "cuda", torch.bfloat16) for s in ((1, 40, 128), (1, S, 8, 128),
+                                              (1, S, 8, 128)))
+        out = decode_attention(q, k, v, length)
+        out2, lse = decode_attention(q, k, v, length, return_lse=True)
+        check(torch.equal(out, out2), f"decode_lse {case}: the output "
+              f"changed with return_lse")
+        _, lse_ref = decode_attention_ref(q, k, v, length, return_lse=True)
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(lse_err <= LSE_TOL, f"decode_lse {case}: lse off by {lse_err}"
+              f" (limit {LSE_TOL})")
+        slice_err = {}
+        for n in (2, 4):
+            per = -(-S // n)
+            parts = [decode_attention(q, k[:, i * per:(i + 1) * per],
+                                      v[:, i * per:(i + 1) * per],
+                                      _local_window(i * per, min(per, S - i * per),
+                                                    length, 0)[0],
+                                      return_lse=True) for i in range(n)]
+            lses = torch.stack([l for _, l in parts])
+            merged = lse_merge(torch.stack([o for o, _ in parts]),
+                               lses).float()
+            # each slice's output rounds once to bfloat16 (u = 2**-8 of
+            # itself) before the merge, the merge once more, the uncut
+            # output once: the merge of the slices' |o| bounds the first
+            abs_merged = lse_merge(torch.stack([o.float().abs()
+                                                for o, _ in parts]), lses)
+            bound = BF16_ROUND * (abs_merged + merged.abs()
+                                  + out.float().abs()) + \
+                ATTN_TOL[torch.bfloat16]["atol"]
+            diff = (merged - out.float()).abs()
+            ok = bool((diff <= bound).all())
+            slice_err[n] = diff.max().item()
+            check(ok, f"decode_lse {case}: {n} slices merged off by "
+                  f"{slice_err[n]}")
+        row = {"phase": "decode_lse", "case": case, "S": S,
+               "length": length, "H": 40, "KV": 8, "d": 128,
+               "dtype": "bfloat16", "out_bits_equal": True,
+               "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+               "slices_max_abs_err": slice_err,
+               "ms": device_ms(lambda: decode_attention(q, k, v, length),
+                               cold_l2=True),
+               "ms_lse": device_ms(lambda: decode_attention(
+                   q, k, v, length, return_lse=True), cold_l2=True),
+               "card": smi}
+        emit(row)
+        rows.append(row)
+    return rows[0]
+
+
+def _greedy(params, cfg, prompts, ctx, steps):
+    """Prefill ``prompts`` and ``steps`` greedy decode steps; returns
+    (tokens, every step's logits on the host, launches, seconds)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = lm.prefill(params, cfg, {"tokens": prompts}, ctx,
+                               max_len=prompts.shape[1] + steps + 1)
+    out, toks = [logits.float().cpu()], [logits.argmax(-1)]
+    for _ in range(steps):
+        cache, logits = lm.decode_step(params, cfg, cache, toks[-1], ctx)
+        out.append(logits.float().cpu())
+        toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    return (torch.cat(toks, 1).cpu(), out, launch_counts(),
+            time.perf_counter() - t0)
+
+
+def sharded_serve_phase(cfg, model, smi) -> dict:
+    """qwen3-14b at full width and depth (the serving phase's seed-0 bf16
+    model), 4 prompts of 512 tokens and 31 greedy decode steps through
+    ``lm.prefill``/``lm.decode_step`` with ``make_ctx`` on an NCCL mesh of
+    one rank, (1, 1) ``("data", "model")``, and again under
+    ``seq_shard_cache`` (the lse-combine path): the tokens equal the
+    ``ctx=None`` path's, its logits the same bits on the (1, 1) path (the
+    same arithmetic: every collective is on one rank) and within the
+    decode tolerance under ``seq_shard_cache``; launches exact."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import make_ctx
+
+    steps = TOKENS - 1
+    prompts = torch.from_numpy(np.random.default_rng(60).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to("cuda")
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * steps, "tile_matmul": 0,
+            "ssd_scan": 0}
+    toks0, logits0, _, s0 = _greedy(model, cfg, prompts, None, steps)
+    rows = {}
+    with nccl_world_of_one():
+        mesh = make_debug_mesh(1, 1)
+        for name, seq in (("mesh_1x1", False), ("seq_shard_cache", True)):
+            ctx = make_ctx(mesh, cfg)
+            ctx.seq_shard_cache = seq
+            local = lm.shard_params(model, ctx, copy=False)
+            C.reset_counts()
+            toks, logits, launches, s = _greedy(local, cfg, prompts, ctx,
+                                                steps)
+            same = all(torch.equal(a, b) for a, b in zip(logits, logits0))
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(logits, logits0))
+            check(torch.equal(toks, toks0), f"sharded_serve {name}: tokens "
+                  f"differ from ctx=None's")
+            check(launches == want, f"sharded_serve {name}: launches "
+                  f"{launches}, expected {want}")
+            if seq:
+                check(all(torch.allclose(a, b, **ATTN_TOL[torch.bfloat16])
+                          for a, b in zip(logits, logits0)),
+                      f"sharded_serve {name}: logits off by {err}")
+            else:
+                check(same, f"sharded_serve {name}: logits differ from "
+                      f"ctx=None's by {err}")
+            rows[name] = {"tokens_equal": True, "logits_bits_equal": same,
+                          "logits_max_abs_err": err, "launches": launches,
+                          "collectives": C.counts()["total_count"],
+                          "seconds": s}
+            del local
+    row = {"phase": "sharded_serve", "arch": cfg.name, "layers":
+           cfg.n_layers, "batch": BATCH, "prompt": PROMPT,
+           "decode_steps": steps, "ctx_none_seconds": s0, **rows,
+           "card": smi}
+    emit(row)
+    return row
+
+
+def _held_bytes(params, opt, batch) -> int:
+    from repro_torch.launch.dryrun import tree_bytes
+    return tree_bytes(params) + tree_bytes(opt) + tree_bytes(
+        {k: torch.as_tensor(v) for k, v in batch.items()})
+
+
+def sharded_train_step_phase(smi, train_row: dict) -> dict:
+    """``train_step_phase``'s cell (qwen3-14b at full width cut to 4
+    layers, bf16, seq 1,024, batch 4 in 2 microbatches, hybrid) through
+    ``make_ctx`` (FSDP on) and ``grad_pspecs`` on an NCCL mesh of one rank:
+    step 1's loss within SHARDED_LOSS_RTOL of the ``ctx=None`` step's and
+    its parameters within 2 lr plus a bf16 unit of it; the same bits
+    twice; serial equal to hybrid to the
+    bit; 8 steps, flash launches exactly 16 a step; step ms, a profiled
+    step's busy share and NCCL kernels, the collectives' count and bytes
+    a step, beside the ``ctx=None`` train step's (``train_row``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import make_ctx
+    from repro_torch.train import StepConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch0 = data.batch_at(0)
+    model = init_params(cfg, seed=0, device="cuda")
+    opt = adamw_init(model)
+    plain = make_train_step(cfg, opt_cfg, None, StepConfig(
+        microbatches=TRAIN_MICRO, overlap="hybrid"))
+    model, opt, m_plain = plain(model, opt, batch0)
+    plain_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    plain_loss = float(m_plain["loss"])
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with nccl_world_of_one():
+        ctx = make_ctx(make_debug_mesh(1, 1), cfg)
+        check(ctx.fsdp, "FSDP is on by default")
+
+        def first(overlap):
+            local = lm.shard_params(init_params(cfg, seed=0, device="cuda"),
+                                    ctx, copy=False)
+            opt = adamw_init(local)
+            step = make_train_step(cfg, opt_cfg, ctx, StepConfig(
+                microbatches=TRAIN_MICRO, overlap=overlap),
+                grad_pspecs=lm.param_pspecs(cfg, ctx))
+            local, opt, m = step(local, opt, batch0)
+            return local, opt, step, float(m["loss"])
+
+        serial, _, _, loss_serial = first("serial")
+        serial_params = {n: p.detach().cpu()
+                         for n, p in serial.named_parameters()}
+        del serial
+        again, _, _, loss_again = first("hybrid")
+        again_params = {n: p.detach().cpu()
+                        for n, p in again.named_parameters()}
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        local, opt, step, loss1 = first("hybrid")
+        held = _held_bytes(local, opt, batch0)
+        same_twice = loss1 == loss_again and all(
+            torch.equal(p.detach().cpu(), again_params[n])
+            for n, p in local.named_parameters())
+        serial_equal = loss1 == loss_serial and all(
+            torch.equal(p.detach().cpu(), serial_params[n])
+            for n, p in local.named_parameters())
+        share, worst, allowed = _params_differ(local, plain_params,
+                                               opt_cfg.lr)
+        del again_params, serial_params, plain_params
+        check(abs(loss1 - plain_loss) <= SHARDED_LOSS_RTOL * plain_loss,
+              f"sharded train step: loss {loss1} against ctx=None's "
+              f"{plain_loss}")
+        # a step-1 AdamW update is lr * g / (|g| + eps), at most lr in
+        # size whatever g: two step-1 results from one start are at most
+        # 2 lr (plus a bf16 unit) apart; the share that differs at all
+        # (the cross entropy's float32 sums, the embedding's backward) is
+        # printed, not gated
+        check(worst <= allowed, f"sharded train step vs ctx=None: "
+              f"parameters up to {worst} apart (limit {allowed}; "
+              f"{share:.3g} of them differ)")
+        check(same_twice, "sharded train step: two runs differ")
+        check(serial_equal, "sharded train step: serial and hybrid differ")
+        losses, step_s, launches, colls = [loss1], [], [], []
+        for i in range(1, TRAIN_STEPS):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            C.reset_counts()
+            t1 = time.perf_counter()
+            local, opt, m = step(local, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            launches.append(launch_counts())
+            colls.append(C.counts())
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        want = train_launches(cfg)
+        check(all(c == want for c in launches), f"sharded train step "
+              f"launches {launches[0]}, expected {want}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            local, opt, _ = step(local, opt, data.batch_at(TRAIN_STEPS))
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t1
+        dev_rows = _device_rows(prof)
+        device_s = sum(r[0] for r in dev_rows) / 1e6
+        nccl = sum(c for _, k, c in dev_rows if "nccl" in k.lower())
+        del local, opt, step
+    med = sorted(step_s)[len(step_s) // 2]
+    row = {"phase": "sharded_train_step", "arch": cfg.name,
+           "layers": cfg.n_layers, "mesh": [1, 1], "fsdp": True,
+           "microbatches": TRAIN_MICRO, "overlap": "hybrid",
+           "loss_step1": loss1, "ctx_none_loss_step1": plain_loss,
+           "params_differ_share": share, "max_abs_diff": worst,
+           "allowed": allowed, "same_bits_twice": same_twice,
+           "serial_equals_hybrid": serial_equal, "losses": losses,
+           "step_s": step_s, "median_step_ms": med * 1e3,
+           "ctx_none_median_step_ms": train_row["median_step_ms"],
+           "flash_launches_per_step": launches[0]["flash_attention"],
+           "flash_launches": sum(c["flash_attention"] for c in launches),
+           "collectives_per_step": colls[0]["total_count"],
+           "collective_bytes_per_step": colls[0]["total_bytes"],
+           "nccl_kernels_per_step": nccl,
+           "device_busy_share": device_s / prof_wall,
+           "ctx_none_device_busy_share": train_row["device_busy_share"],
+           "held_bytes": held, "peak_memory_bytes": peak, "card": smi}
+    emit(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _staggered(rank: int, make):
+    """``make()`` on rank 0, then on rank 1 (each draws a whole model for a
+    moment before cutting its shards: one at a time fits the card)."""
+    import torch.distributed as dist
+    out = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in (0, 1):
+        if r == rank:
+            out = make()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _diff_sq(g: torch.Tensor, r: torch.Tensor, rows: int = 1 << 24):
+    """``(|g - r|^2, |r|^2)`` in float64 for ``g`` on the card and ``r`` on
+    the card or the host, a few million elements at a time."""
+    g, r = g.reshape(-1), r.reshape(-1)
+    d2 = r2 = 0.0
+    for i in range(0, g.numel(), rows):
+        rc = r[i:i + rows].to(g.device, torch.float64)
+        d2 += (g[i:i + rows].double() - rc).pow(2).sum().item()
+        r2 += rc.pow(2).sum().item()
+    return d2, r2
+
+
+def two_rank_child(rank: int, port: int, out: str) -> None:
+    """One of the two gloo ranks on the card.  For each TWO_RANK_ARCHS
+    model each rank runs the single-rank reference on the whole batch
+    (the loss and every gradient of ``lm.loss_fn``, and greedy decoding);
+    then on each of the model's meshes, (1, 2) (TP = EP = 2, the MoE's
+    psum branch) or (2, 1) (DP = 2), each rank compares every shard
+    of every gradient with the same slice of the reference's, the squared
+    norms of the difference and of the reference added over the ranks
+    (each shard counted once), and on (1, 2) the greedy tokens; rank 0
+    writes the results to ``out`` (JSON)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_params, lm
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import make_ctx
+    from repro_torch.sharding.rules import local_slices
+    from repro_torch.train import steps
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    results = []
+    try:
+        for arch, layers, extra, meshes, ref_on_card in TWO_RANK_ARCHS:
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                      dtype="float32", **extra)
+            rng = np.random.default_rng(70)
+            tokens = rng.integers(0, cfg.vocab_size,
+                                  (TWO_RANK_BATCH, TWO_RANK_SEQ),
+                                  dtype=np.int32)
+            batch = {"tokens": torch.from_numpy(tokens).cuda(),
+                     "labels": torch.from_numpy(np.roll(tokens, -1, 1)
+                                                ).cuda()}
+            t0 = time.perf_counter()
+
+            def reference():
+                full = init_params(cfg, 0, "cuda").requires_grad_(True)
+                loss, grads = steps._value_and_grad(full, cfg, batch, True)
+                toks = _greedy(full, cfg, batch["tokens"][:, :64], None,
+                               TWO_RANK_DECODE)[0]
+                if not ref_on_card:
+                    grads = {n: g.cpu() for n, g in grads.items()}
+                return float(loss), grads, toks
+
+            ref_loss, ref, ref_toks = (reference() if ref_on_card
+                                       else _staggered(rank, reference))
+            torch.cuda.empty_cache()
+            ref_s = time.perf_counter() - t0
+            for shape, kw in meshes:
+                t0 = time.perf_counter()
+                ctx = make_ctx(make_debug_mesh(*shape), cfg)
+                for k, v in kw.items():
+                    setattr(ctx, k, v)
+                ctx.make_groups()
+                local = _staggered(rank, lambda: lm.shard_params(
+                    init_params(cfg, 0, "cuda"), ctx).requires_grad_(True))
+                i = ctx.index(ctx.batch_axes)
+                per = TWO_RANK_BATCH // ctx.dp_size
+                mine = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                reset_launch_counts()
+                C.reset_counts()
+                loss, grads = steps._value_and_grad(local, cfg, mine, True,
+                                                    ctx)
+                names = steps._dp_names(cfg, ctx)
+                grads = steps._Bucket(grads, names, ctx.group(
+                    ctx.batch_axes) if names else None, False, False).ready()
+                launches, colls = launch_counts(), C.counts()
+                shares, world = steps._norm_shares(cfg, ctx)
+                pspecs = lm._name_pspecs(cfg, ctx)
+                sums = []
+                for n, g in grads.items():
+                    r = ref[n][local_slices(ref[n].shape, pspecs[n],
+                                            ctx.mesh)]
+                    sums += [shares[n] * x for x in _diff_sq(g, r)]
+                sums = torch.tensor(sums, dtype=torch.float64)
+                dist.all_reduce(sums, group=world)
+                errs = {n: (sums[2 * j] / sums[2 * j + 1]).sqrt().item()
+                        if sums[2 * j + 1] > 0 else sums[2 * j].sqrt().item()
+                        for j, n in enumerate(grads)}
+                worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+                row = {"arch": arch, "dtype": "float32", "mesh": list(shape),
+                       "options": kw, "loss": float(loss),
+                       "ref_loss": ref_loss,
+                       "loss_rel_err": abs(float(loss) - ref_loss) / ref_loss,
+                       "launches": launches,
+                       "collectives": {k: v for k, v in colls.items()
+                                       if not isinstance(v, dict)
+                                       or v["count"]},
+                       "grad_rel_err": worst[0][1], "worst_leaves": worst,
+                       "ref_s": ref_s, "mesh_s": time.perf_counter() - t0}
+                del grads
+                if shape == (1, 2):
+                    toks, _, dl, _ = _greedy(local, cfg,
+                                             batch["tokens"][:, :64], ctx,
+                                             TWO_RANK_DECODE)
+                    row["decode_launches"] = dl
+                    row["tokens_equal"] = bool(torch.equal(toks, ref_toks))
+                results.append(row)
+                del local
+                torch.cuda.empty_cache()
+                dist.barrier()
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(results, f)
+
+
+def sharded_two_ranks_phase(smi) -> list:
+    """Two gloo processes on the one card (NCCL refuses two ranks on one
+    device; the collectives run on host copies) run ``two_rank_child``:
+    the card sees collectives of two ranks.  Each model's loss and every
+    gradient on meshes (1, 2) and (2, 1) within TWO_RANK_RTOL of the
+    single-rank run's, the greedy tokens of (1, 2) (flash and decode on 20
+    of 40 query heads and 4 of 8 KV heads for qwen3-14b) equal to it."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "two_ranks.json")
+        t0 = time.perf_counter()
+        tmp.spawn(two_rank_child, args=(_free_port(), out), nprocs=2,
+                  join=True)
+        with open(out) as f:
+            rows = json.load(f)
+    emit({"phase": "sharded_two_ranks", "rows": rows,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    for r in rows:
+        what = f"sharded_two_ranks {r['arch']} {r['mesh']}"
+        check(r["loss_rel_err"] <= TWO_RANK_RTOL["loss"], f"{what}: loss "
+              f"{r['loss']} against {r['ref_loss']}")
+        check(r["grad_rel_err"] <= TWO_RANK_RTOL["grad"], f"{what}: a "
+              f"gradient off by {r['grad_rel_err']} of its norm")
+        if "tokens_equal" in r:
+            check(r["tokens_equal"], f"{what}: greedy tokens differ")
+        check(r["launches"]["flash_attention"] == 2 * 2, f"{what}: flash "
+              f"launches {r['launches']} (2 layers, forward and remat)")
+    return rows
+
+
+_DRYRUN_CHILD = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun, perf_iter
+from repro_torch.launch.mesh import make_debug_mesh
+cells, cut = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+for arch, shape, mesh in cells:
+    rec = dryrun.run_cell(arch, shape, mesh)
+    rec.pop("traceback", None)
+    if rec["status"] == "ok":
+        rec["roofline"] = perf_iter.roofline(rec)
+    print(json.dumps({"record": rec}), flush=True)
+dryrun.fake_world(1)
+cfg = dataclasses.replace(get_config(cut["arch"]), n_layers=cut["layers"])
+cell = dryrun.build_cell(cut["arch"], "train_4k", make_debug_mesh(
+    1, 1, device_type="cpu"), cfg=cfg, shape_def=cut["shape_def"],
+    overrides={"micro": cut["micro"]})
+print(json.dumps({"cut": dryrun.measure(cell)}), flush=True)
+"""
+
+
+def start_dryrun():
+    """The dry run's subprocess, started at once and read at the end: it
+    runs on the host's CPU (fake tensors, a fake group that must not meet
+    this process's NCCL one), at the lowest priority and on one thread,
+    beside the card's phases."""
+    cut = {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "micro": TRAIN_MICRO,
+           "shape_def": {"seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                         "kind": "train"}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    import tempfile
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-c", _DRYRUN_CHILD,
+         json.dumps(DRYRUN_CELLS), json.dumps(cut)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    proc.err_file = err
+    return proc
+
+
+def dryrun_phase(proc, sharded_row: dict, smi) -> list:
+    """The dry run's records (each cell's memory, FLOPs, collectives by
+    kind and H100 roofline terms) and the (1, 1) cut cell's argument bytes,
+    which must equal the bytes the sharded train step held on the card;
+    its temp bytes beside the card's peak less those arguments."""
+    t0 = time.perf_counter()
+    stdout, _ = proc.communicate(timeout=900)
+    proc.err_file.seek(0)
+    stderr = proc.err_file.read()
+    proc.err_file.close()
+    check(proc.returncode == 0, f"the dry run failed: {stderr[-2000:]}")
+    lines = [json.loads(l) for l in stdout.splitlines() if l.startswith("{")]
+    records = [l["record"] for l in lines if "record" in l]
+    cut = [l["cut"] for l in lines if "cut" in l][0]
+    for rec in records:
+        check(rec["status"] == "ok", f"dry run {rec['arch']} {rec['shape']}:"
+              f" {rec.get('error')}")
+        emit({"phase": "dryrun", **rec, "card": smi})
+    args = cut["memory"]["argument_size_in_bytes"]
+    held = sharded_row["held_bytes"]
+    check(args == held, f"the (1, 1) dry run counts {args} argument bytes, "
+          f"the sharded train step held {held}")
+    on_card = sharded_row["peak_memory_bytes"] - held
+    emit({"phase": "dryrun_vs_card", "argument_bytes": args,
+          "held_bytes": held, "temp_bytes": cut["memory"][
+              "temp_size_in_bytes"], "card_peak_less_arguments": on_card,
+          "temp_over_card": cut["memory"]["temp_size_in_bytes"] / on_card,
+          "flops": cut["hlo_dot_flops"], "collectives": cut["collectives"],
+          "wait_s": time.perf_counter() - t0, "card": smi})
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=7680,
                     help="matrix order (paper sizes: 7680, 12288, 18432)")
     ap.add_argument("--tile", type=int, default=192, help="tile width b")
-    ap.add_argument("--requests", type=int, default=12,
+    ap.add_argument("--requests", type=int, default=8,
                     help="Poisson serving phase: stream length")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -3373,6 +4016,8 @@ def main() -> int:
 
     smi = card_phase()
     build_phase()
+    # the dry run (CPU, fake tensors) runs beside every card phase
+    dry = start_dryrun()
     t = args.tile
     main_case = kernel_case(f"tile_gemm_sub f64 {t}x{t}x{t}", torch.float64,
                             t, t, t, mode="sub_t", seed=0)
@@ -3402,6 +4047,7 @@ def main() -> int:
     decode_case("decode S=4096 length=4000", 4096, 4000, 0, seed=4)
     decode_case("decode S=1033 length=1000 window=64", 1033, 1000, 64,
                 seed=5)
+    lse_row = decode_lse_phase(smi)
     decode_case(f"decode S={max_len} length=0", max_len, 0, 0, seed=6)
     # three keys across sixteen splits: thirteen ranges are empty
     decode_case(f"decode S={max_len} length=3 (fewer keys than splits)",
@@ -3519,13 +4165,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # worker processes: spawned after every kernel library was built above
-    mp_launches = cholesky_mp_phase(args.n, t, smi)
+    mp_launches = cholesky_mp_phase(args.n, t, smi, n_seeds=MP_SEEDS)
     gc.collect()
     torch.cuda.empty_cache()
 
     batch_rows = {}
-    for arch, poisson in SERVE_ARCHS:
-        cfg, model, floor_bytes = serving_model(arch)
+    for arch, poisson, layers in SERVE_ARCHS:
+        cfg, model, floor_bytes = serving_model(arch, layers)
         batch_rows[arch], state = serving_batch_phase(cfg, model,
                                                       floor_bytes, smi)
         if poisson:
@@ -3537,12 +4183,16 @@ def main() -> int:
             poisson_row, poisson_tokens = serving_poisson_phase(
                 cfg, model, args.requests, smi)
         serving_profile_phase(cfg, model, state, floor_bytes, smi)
+        if arch == "qwen3-14b":
+            # the sharded paths on a mesh of one rank, on the same model
+            sharded_serve = sharded_serve_phase(cfg, model, smi)
         if arch == MP_SERVE_ARCH:
             # sharded serving while the parent's model is loaded (the
             # engine's rescue needs it); three copies of qwen3-14b would
             # not fit the card
             serving_mp = serving_mp_phase(cfg, model, args.requests,
-                                          poisson_row, poisson_tokens, smi)
+                                          poisson_row, poisson_tokens, smi,
+                                          layers=cfg.n_layers)
         del model, state                  # free the card for the next model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3571,10 +4221,13 @@ def main() -> int:
     ssm_decode_matches_forward_phase(smi)
     train_ssm_grad_vs_cpu_phase(smi)
     train_row = train_step_phase(smi)
+    sharded_train = sharded_train_step_phase(smi, train_row)
+    two_ranks = sharded_two_ranks_phase(smi)
     ssm_rows = train_step_ssm_phase(smi)
     train_ssm_seed_witness_phase(smi)
     trainer_row = trainer_phase(smi)
     trainer_lr_witness_phase(smi)
+    dryrun_phase(dry, sharded_train, smi)
 
     def line(name, case, launches):
         return {"name": name, "route": "cuda",
@@ -3605,10 +4258,19 @@ def main() -> int:
         "serving_zamba2-7b": zamba["decode_attention_launches"],
         "serving_compiled": qwen["compiled_decode_attention_launches"],
         "serving_mp": serving_mp["decode_attention"],
-        **{k: r["decode_attention_launches"] for k, r in new_paths.items()}}
+        **{k: r["decode_attention_launches"] for k, r in new_paths.items()},
+        # the sharded serve on a mesh of one rank, and under
+        # seq_shard_cache (lse and its combine); rank 0's decode on 20/4
+        # heads of the two-rank mesh (1, 2)
+        "sharded_serve": sum(sharded_serve[k]["launches"]["decode_attention"]
+                             for k in ("mesh_1x1", "seq_shard_cache")),
+        "sharded_two_ranks": sum(r.get("decode_launches", {}).get(
+            "decode_attention", 0) for r in two_ranks)}
     decode = line("decode_attention", decode_main,
                   sum(decode_by_path.values()))
     decode["launches_by_path"] = decode_by_path
+    decode["lse"] = {k: lse_row[k] for k in ("ms", "ms_lse",
+                                             "lse_max_abs_err", "S")}
     # the sharded serve (zamba2-7b) in the children, beside each kernel's
     # single-process serving path
     # training: the train step's 8 steps, the trainer's 40 (each step's
@@ -3621,7 +4283,15 @@ def main() -> int:
                      "train_step": train_row["flash_launches"],
                      "train_step_zamba2-7b":
                          ssm_rows["zamba2-7b"]["flash_launches"],
-                     "trainer": trainer_row["flash_launches"]}
+                     "trainer": trainer_row["flash_launches"],
+                     "sharded_serve": sum(
+                         sharded_serve[k]["launches"]["flash_attention"]
+                         for k in ("mesh_1x1", "seq_shard_cache")),
+                     "sharded_train_step": sharded_train["flash_launches"],
+                     "sharded_two_ranks": sum(
+                         r["launches"]["flash_attention"]
+                         + r.get("decode_launches", {}).get(
+                             "flash_attention", 0) for r in two_ranks)}
     flash = line("flash_attention", flash_main, sum(flash_by_path.values()))
     flash["launches_by_path"] = flash_by_path
     # the forward + backward pair at qwen3's training shape (bf16)

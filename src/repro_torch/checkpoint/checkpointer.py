@@ -16,9 +16,14 @@ The port of the reference's ``repro/checkpoint/checkpointer.py``:
 
 numpy has no bfloat16: a bfloat16 leaf is saved as its ``uint16`` bits
 with ``"dtype": "bfloat16"`` in the manifest and restored bit for bit.
-``restore(device=)`` puts every leaf on ``device`` (CUDA by default); the
-reference's elastic ``shardings=`` waits for ROADMAP Queue A item 12.  A
-float32 checkpoint the reference wrote restores here as it is.
+``restore(device=)`` puts every leaf on ``device`` (CUDA by default).
+``restore(shardings=, mesh=)`` is the reference's elastic restore: each
+leaf the ``shardings`` tree places (DTensor placements per mesh
+dimension, as ``sharding.named`` gives them) is loaded whole from its file
+and cut to this rank's shard, so a checkpoint saved on one mesh restores
+on any other.  A checkpoint holds whole leaves: a sharded trainer gathers
+them first and its rank 0 alone writes.  A float32 checkpoint the
+reference wrote restores here as it is.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ..linalg.tiles import resolve_device
+from ..sharding.rules import local_slices, pspec_of
 
 __all__ = ["Checkpointer"]
 
@@ -156,16 +162,15 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, device: Device = None,
-                shardings=None):
+                shardings=None, mesh=None):
         """Load a checkpoint (the latest by default) as ``(tree,
         manifest)``, every leaf a tensor on ``device`` (CUDA by default,
-        raising without one); ``(None, None)`` when there is none.  A
-        non-None ``shardings`` raises (ROADMAP Queue A item 12)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "elastic restore onto a sharding is not ported to repro_torch "
-                "yet; see ROADMAP Queue A item 12 (sharding/)")
+        raising without one); ``(None, None)`` when there is none.  With
+        ``shardings`` (a tree over the saved one whose leaves are DTensor
+        placements, one per dimension of ``mesh``, or None for a whole
+        leaf) each placed leaf is this rank's shard."""
         dev = resolve_device(device)
+        flat_sh = _flatten(shardings) if shardings is not None else {}
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
@@ -174,6 +179,11 @@ class Checkpointer:
             manifest = json.load(f)
         flat = {}
         for leaf in manifest["leaves"]:
+            path = tuple(leaf["path"])
             arr = np.load(os.path.join(d, leaf["file"]))
-            flat[tuple(leaf["path"])] = _from_host(arr, leaf["dtype"], dev)
+            placements = flat_sh.get(path)
+            if placements is not None:
+                arr = np.ascontiguousarray(arr[local_slices(
+                    arr.shape, pspec_of(placements, mesh, arr.ndim), mesh)])
+            flat[path] = _from_host(arr, leaf["dtype"], dev)
         return _unflatten(flat), manifest

@@ -55,6 +55,12 @@
 // the same inputs give the same bits.  An empty range keeps m = -inf, l = 0,
 // acc = 0 and weighs exactly 0; length = 0 gives zeros.
 //
+// With a non-null `lse` (float32, (B, H), contiguous), block 0 of each
+// cluster also writes every head's log-sum-exp of its scaled scores,
+// M + log(sum_s l_s e^(m_s - M)), or -inf where no key is valid: partials
+// over slices of a sequence-sharded cache then combine exactly.  `out` is
+// computed the same way with or without it.
+//
 // The launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError(), so a refused launch reaches the caller.
 
@@ -148,8 +154,9 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out,
-                        int rep, int d, int lo, int length, int per,
-                        int stages, float scale, int64_t q_sb, int64_t q_sh,
+                        float* __restrict__ lse, int H, int rep, int d,
+                        int lo, int length, int per, int stages,
+                        float scale, int64_t q_sb, int64_t q_sh,
                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
                         int64_t v_sb, int64_t v_ss, int64_t v_sh,
                         int64_t o_sb, int64_t o_sh) {
@@ -329,6 +336,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(total, 1e-30f);
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s) wts[r * kMaxSplits + s] = f[s] * inv;
+    if (lse != nullptr && split == 0)
+      lse[int64_t(b) * H + int64_t(g) * rep + r] =
+          mx == -INFINITY ? -INFINITY : mx + logf(total);
   }
   __syncthreads();
   for (int i = split * kThreads + tid; i < rep * d; i += splits * kThreads) {
@@ -344,9 +354,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int KV, int rep, int d, int lo, int length, int splits, int per,
-           float scale, const int64_t* st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int KV, int rep, int d, int lo, int length,
+           int splits, int per, float scale, const int64_t* st,
+           cudaStream_t stream) {
   // once per device: the dynamic shared-memory limit, raised to what the
   // widest head and group need, and clusters of up to 16 blocks
   static std::atomic<uint64_t> done{0};
@@ -381,8 +392,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   cfg.numAttrs = 1;
   return int(cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), rep, d, lo, length, per,
-      stages, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      static_cast<const T*>(v), static_cast<T*>(out), lse, KV * rep, rep, d,
+      lo, length, per, stages, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9]));
 }
 
@@ -392,10 +403,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // elements: q (b, h), k (b, s, kv head), v (b, s, kv head), out (b, h); the
 // head dimension is contiguous in all four, and every K/V row starts on 16
 // bytes (the wrapper checks).  [lo, length) is cut into `splits` ranges of
-// `per` keys (decode_splits).  Returns a cudaError_t as int: 0 when the
-// launch was accepted.
+// `per` keys (decode_splits).  `lse` is null, or float32 (B, H)
+// contiguous.  Returns a cudaError_t as int: 0 when the launch was
+// accepted.
 extern "C" int decode_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* out, int B,
+    int dtype, const void* q, const void* k, const void* v, void* out,
+    void* lse, int B,
     int H, int KV, int S, int d, int length, int lo, int splits, int per,
     int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_sh,
@@ -412,12 +425,13 @@ extern "C" int decode_attention_launch(
   int err;
   switch (dtype) {
     case 1:
-      err = launch<float>(q, k, v, out, B, KV, H / KV, d, lo, length, splits,
-                          per, scale, st, s);
+      err = launch<float>(q, k, v, out, static_cast<float*>(lse), B, KV,
+                          H / KV, d, lo, length, splits, per, scale, st, s);
       break;
     case 2:
-      err = launch<__nv_bfloat16>(q, k, v, out, B, KV, H / KV, d, lo, length,
-                                  splits, per, scale, st, s);
+      err = launch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), B,
+                                  KV, H / KV, d, lo, length, splits, per,
+                                  scale, st, s);
       break;
     default:
       return int(cudaErrorInvalidValue);

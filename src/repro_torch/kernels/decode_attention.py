@@ -12,6 +12,13 @@ launched); on CPU tensors it runs the plain version,
 :func:`~repro_torch.kernels.ref.decode_attention_ref`.  There is no mode
 switch and no fallback between the two.
 
+With ``return_lse=True`` it returns ``(out, lse)``, ``lse`` float32 ``(B,
+H)``: each row's log-sum-exp of its scaled scores over the valid keys
+(``m + log l`` of the merged splits), -inf where no key is valid, so that
+partials over slices of a sequence-sharded cache combine exactly
+(:func:`~repro_torch.sharding.collectives.lse_combine`).  ``out`` has the
+same bits either way.
+
 ``length`` is a host integer, a launch argument: the caller never reads a
 device value to pass it, so a decode step does not synchronise.
 
@@ -93,7 +100,7 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = cuda_lib.load("decode_attention").decode_attention_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 9 + [ctypes.c_int64] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -140,13 +147,16 @@ def _check(q, k, v, length, window):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: int, *, window: int = 0) -> torch.Tensor:
+                     length: int, *, window: int = 0,
+                     return_lse: bool = False):
     """Attention of q ``(B, H, d)`` over ``k/v[:, :length]`` ``(B, S, KV,
-    d)``; with ``window > 0`` only the last ``window`` positions."""
+    d)``; with ``window > 0`` only the last ``window`` positions; with
+    ``return_lse`` also each row's float32 log-sum-exp ``(B, H)``."""
     B, H, KV, S, d = _check(q, k, v, length, window)
     cuda_lib.refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, int(length), window=int(window))
+        return decode_attention_ref(q, k, v, int(length), window=int(window),
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
@@ -157,8 +167,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lo, splits, per = decode_splits(int(length), int(window), KV, d)
     fn = _launcher()
     out = torch.empty((B, H, d), dtype=v.dtype, device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), B, H, KV, S, d, int(length), lo, splits, per,
+             out.data_ptr(), lse.data_ptr() if return_lse else None,
+             B, H, KV, S, d, int(length), lo, splits, per,
              q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2), out.stride(0),
              out.stride(1), torch.cuda.current_stream().cuda_stream)
@@ -167,4 +180,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"error {err} (B={B}, H={H}, KV={KV}, S={S}, "
                            f"d={d}, {q.dtype})")
     launches.add()
-    return out
+    return (out, lse) if return_lse else out

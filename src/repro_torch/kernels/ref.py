@@ -78,12 +78,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         length: int, *, window: int = 0) -> torch.Tensor:
+                         length: int, *, window: int = 0,
+                         return_lse: bool = False):
     """One query token per ``(b, h)`` against a KV cache: q ``(B, H, d)``;
     k/v ``(B, S, KV, d)`` with query head ``h`` reading KV head
     ``h // (H // KV)``; positions ``< length`` are valid and, with
     ``window > 0``, only those ``> length - 1 - window``.  Returns
-    ``(B, H, d)`` in v's dtype; ``length = 0`` gives zeros."""
+    ``(B, H, d)`` in v's dtype; ``length = 0`` gives zeros.  With
+    ``return_lse``, also each row's float32 log-sum-exp of its scaled
+    scores over the valid keys, ``(B, H)``, -inf where there is none."""
     B, H, d = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -94,7 +97,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window > 0:
         mask &= pos > length - 1 - window
     out = _masked_softmax_pv(s, mask, v.permute(0, 2, 1, 3))
-    return out.reshape(B, H, d).to(v.dtype)
+    out = out.reshape(B, H, d).to(v.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s.masked_fill(~mask, -math.inf), dim=-1)
+    return out, lse.reshape(B, H)
 
 
 def ssd_chunk_ref(xdt: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,

@@ -40,10 +40,23 @@ from torch import nn
 
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..sharding import collectives as C
 
-__all__ = ["Attention", "Block", "MLP", "MoE", "attn_spec", "materialize_",
-           "mlp_spec", "moe_capacity", "moe_loop_ref", "moe_route",
-           "moe_spec", "rmsnorm", "rope", "rope_tables"]
+__all__ = ["Attention", "Block", "LOGICAL_AXES", "MLP", "MoE", "attn_axes",
+           "attn_spec", "materialize_", "mlp_axes", "mlp_spec",
+           "moe_axes", "moe_capacity", "moe_loop_ref", "moe_route",
+           "moe_spec", "rmsnorm", "rope", "rope_tables", "sharded"]
+
+#: the logical axis vocabulary (mapped to mesh axes by
+#: :mod:`repro_torch.sharding.rules`)
+LOGICAL_AXES = ("batch", "seq", "embed", "heads", "kv_heads", "ff", "vocab",
+                "experts", "ssm_inner", "state", None)
+
+
+def sharded(ctx) -> bool:
+    """Whether ``ctx`` (a :class:`~repro_torch.sharding.ShardCtx` or None)
+    holds a mesh: the per-rank path, even on a mesh of one rank."""
+    return ctx is not None and ctx.mesh is not None
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +165,90 @@ def attn_spec(cfg) -> Dict[str, tuple]:
     return s
 
 
+def attn_axes(cfg) -> Dict[str, tuple]:
+    """The logical axes of :func:`attn_spec`'s leaves (the reference's)."""
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        s["gamma_q"] = (None,)
+        s["gamma_k"] = (None,)
+    return s
+
+
+def _local_heads(ctx, cfg):
+    """``(group, tp, rank, hl)``: the model axis's group, size and this
+    rank's index, and the query heads each rank holds: ``H / tp``, or
+    ``ceil(H / tp)`` when ``tp`` does not divide ``H`` (the last ranks'
+    surplus heads are zero padding)."""
+    tp = ctx.model_size
+    return (ctx.group(ctx.model_axis), tp, ctx.index(ctx.model_axis),
+            -(-cfg.n_heads // tp))
+
+
+def _realign(w: torch.Tensor, dim: int, ctx, cfg) -> torch.Tensor:
+    """``w``'s head columns (``dim`` 1 of ``wq``) or rows (``dim`` 0 of
+    ``wo``) regrouped into whole heads when the model axis does not divide
+    the heads: the even flat shards are gathered (their gradient
+    reduce-scattered back) and this rank keeps heads ``[r hl, (r + 1)
+    hl)``, zero-padded past ``H``.  When it divides, ``w`` itself."""
+    g, tp, r, hl = _local_heads(ctx, cfg)
+    if cfg.n_heads % tp == 0:
+        return w
+    hd = cfg.head_dim
+    full = C.all_gather(w, dim, g)
+    lo, hi = min(r * hl, cfg.n_heads) * hd, min((r + 1) * hl, cfg.n_heads) * hd
+    part = full.narrow(dim, lo, hi - lo)
+    pad = [0, 0] * (part.dim() - 1 - dim) + [0, hl * hd - (hi - lo)]
+    return nn.functional.pad(part, pad)
+
+
+def _kv_heads_for(ctx, cfg, hl: int):
+    """How this rank's ``hl`` query heads read the K/V heads its
+    projections computed: None when they group in place (``h`` reads
+    ``h // (hl / KV_local)``), else the long tensor of the KV head each
+    query head reads (the K/V are then expanded to one head per query
+    head)."""
+    if ctx.shard_kv:
+        return None
+    rep = cfg.n_heads // cfg.n_kv_heads
+    r = ctx.index(ctx.model_axis)
+    kv = [min(r * hl + j, cfg.n_heads - 1) // rep for j in range(hl)]
+    uniq = sorted(set(kv))
+    if hl % len(uniq) == 0 and kv == [u for u in uniq
+                                      for _ in range(hl // len(uniq))]:
+        return slice(uniq[0], uniq[-1] + 1)
+    return torch.tensor(kv)
+
+
+def _select_kv(t: torch.Tensor, which, dim: int) -> torch.Tensor:
+    if which is None:
+        return t
+    if isinstance(which, slice):
+        return t.narrow(dim, which.start, which.stop - which.start)
+    return t.index_select(dim, which.to(t.device))
+
+
+def cache_seq_axes(cfg, ctx) -> tuple:
+    """The mesh axes the decode cache's sequence shards over
+    (``lm.cache_pspecs``): "model" when the KV heads do not divide it, and
+    the batch axes too under ``seq_shard_cache``."""
+    kv_div = bool(cfg.n_kv_heads) and cfg.n_kv_heads % ctx.model_size == 0
+    axes = tuple(ctx.batch_axes) if ctx.seq_shard_cache else ()
+    return axes + (() if kv_div else (ctx.model_axis,))
+
+
+def _local_window(start: int, S_l: int, length: int, window: int):
+    """``(length, window)`` for the decode kernel over the cache slice
+    ``[start, start + S_l)`` when the valid keys are ``[lo, length)``
+    with ``lo = length - window`` under a window."""
+    lo = max(0, length - window) if window > 0 else 0
+    hi = min(max(length - start, 0), S_l)
+    lo_l = max(lo - start, 0)
+    if lo_l >= hi:
+        return 0, 0
+    return hi, (hi - lo_l if lo_l > 0 else 0)
+
+
 class Attention(nn.Module):
     """Self- or cross-attention with an optional KV cache (the reference's
     ``layers.attention``)."""
@@ -165,7 +262,8 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, *, window: int = 0, rope_cs=None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: Optional[int] = None,
-                memory: Optional[torch.Tensor] = None, causal: bool = True):
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
+                ctx=None):
         """* prefill (``cache is None``): returns ``(out, {"k", "v"})`` with
           the full rotated K/V ``(B, S, KV, hd)`` for the cache; ``causal=
           False`` is the encoder's full self-attention;
@@ -176,7 +274,12 @@ class Attention(nn.Module):
           ``memory`` at every call, with no rope, no mask and no cache;
           returns ``(out, None)``.
 
-        ``rope_cs`` is the step's ``(cos, sin)`` from :func:`rope_tables`."""
+        ``rope_cs`` is the step's ``(cos, sin)`` from :func:`rope_tables`.
+        With a mesh in ``ctx``, :meth:`_sharded` runs this rank's heads."""
+        if sharded(ctx):
+            return self._sharded(x, window=window, rope_cs=rope_cs,
+                                 cache=cache, cache_index=cache_index,
+                                 memory=memory, causal=causal, ctx=ctx)
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.head_dim
@@ -221,6 +324,101 @@ class Attention(nn.Module):
                                window=window)
         return out.reshape(B, 1, cfg.n_heads * hd) @ self.wo, cache
 
+    def _sharded(self, x, *, window, rope_cs, cache, cache_index, memory,
+                 causal, ctx):
+        """This rank's share of :meth:`forward` (Megatron TP): q, k and v
+        are column-parallel over its query heads (and its KV heads, or all
+        of them where ``ctx.shard_kv`` is False), ``o`` is row-parallel and
+        its partial sums are added over the model axis.  The cache (decode)
+        is this rank's slice, :func:`cache_seq_axes` telling whether its
+        sequence is cut: then the kernel returns each row's log-sum-exp
+        and the slices' partials combine over those axes (the query heads
+        gathered first when the slices cut across the model axis).
+        Returns ``(out, {"k", "v"})`` with this rank's computed K/V heads
+        (prefill), ``(out, cache)`` or ``(out, None)``."""
+        cfg = self.cfg
+        g, tp, r, hl = _local_heads(ctx, cfg)
+        B, S, _ = x.shape
+        hd = cfg.head_dim
+        xin = C.copy_to(x, g)
+        src = xin if memory is None else C.copy_to(memory, g)
+        M = src.shape[1]
+        wk, wv = self.wk, self.wv
+        if not ctx.shard_kv:
+            # replicated K/V weights feed this rank's heads only: their
+            # gradient is summed over the model axis
+            wk, wv = C.copy_to(wk, g), C.copy_to(wv, g)
+        wq = _realign(self.wq, 1, ctx, cfg)
+        wo = _realign(self.wo, 0, ctx, cfg)
+        q = (xin @ wq).view(B, S, hl, hd)
+        k = (src @ wk).view(B, M, -1, hd)
+        v = (src @ wv).view(B, M, -1, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, C.copy_to(self.gamma_q, g), cfg.norm_eps)
+            k = rmsnorm(k, C.copy_to(self.gamma_k, g), cfg.norm_eps)
+        which = _kv_heads_for(ctx, cfg, hl)
+
+        def attend(q, k, v, *, causal, window):
+            k, v = _select_kv(k, which, 2), _select_kv(v, which, 2)
+            if S == 1 and not causal:
+                return decode_attention(q[:, 0], k, v, k.shape[1])[:, None]
+            return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window).transpose(1, 2)
+
+        def finish(out):
+            out = out.reshape(B, S, hl * hd) @ wo
+            return C.reduce_from(out, g)
+
+        if memory is not None:
+            return finish(attend(q, k, v, causal=False, window=0)), None
+        q = rope(q, rope_cs)
+        k = rope(k, rope_cs)
+        if cache is None:
+            return finish(attend(q, k, v, causal=causal, window=window)), \
+                {"k": k, "v": v}
+        if S != 1:
+            raise NotImplementedError(
+                "a decode step takes one token per sequence")
+        return finish(self._decode_slice(q[:, 0], k[:, 0], v[:, 0], cache,
+                                         cache_index, window, ctx, hl)
+                      [:, None]), cache
+
+    def _decode_slice(self, q, k, v, cache, idx, window, ctx, hl):
+        """One decode step over this rank's slice of the cache: writes
+        this token's K/V where the slice holds position ``idx``, attends,
+        and combines the slices; returns this rank's heads ``(B, hl,
+        hd)``."""
+        cfg = self.cfg
+        ck, cv = cache["k"], cache["v"]
+        S_l, kv_c = ck.shape[1], ck.shape[2]
+        seq = cache_seq_axes(cfg, ctx)
+        start = ctx.index(seq) * S_l
+        if k.shape[1] != kv_c:
+            # replicated K/V weights (shard_kv off) over a head-sharded cache
+            k = k.narrow(1, ctx.index(ctx.model_axis) * kv_c, kv_c)
+            v = v.narrow(1, ctx.index(ctx.model_axis) * kv_c, kv_c)
+        if start <= idx < start + S_l:
+            ck[:, idx - start] = k
+            cv[:, idx - start] = v
+        length, win = _local_window(start, S_l, idx + 1, window)
+        if not seq:
+            return decode_attention(q, ck, cv, length, window=win)
+        gather_q = ctx.model_axis in seq
+        if gather_q:
+            # all heads over this slice of the sequence (all KV heads)
+            qa = C.all_gather(q, 1, ctx.group(ctx.model_axis))
+            q = qa[:, :cfg.n_heads]
+        out, lse = decode_attention(q, ck, cv, length, window=win,
+                                    return_lse=True)
+        out = C.lse_combine(out, lse, ctx.group(seq))
+        if gather_q:
+            r = ctx.index(ctx.model_axis)
+            out = nn.functional.pad(out, (0, 0, 0, hl * ctx.model_size
+                                          - cfg.n_heads))
+            out = out[:, r * hl:(r + 1) * hl]
+        return out
+
 
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU)
@@ -230,6 +428,11 @@ def mlp_spec(cfg, d_ff: Optional[int] = None) -> Dict[str, tuple]:
     return {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
 
 
+def mlp_axes(cfg=None) -> Dict[str, tuple]:
+    """The logical axes of :func:`mlp_spec`'s leaves."""
+    return {"wg": ("embed", "ff"), "wu": ("embed", "ff"), "wd": ("ff", "embed")}
+
+
 class MLP(nn.Module):
     def __init__(self, cfg, *, dtype: torch.dtype, device: torch.device,
                  d_ff: Optional[int] = None):
@@ -237,8 +440,16 @@ class MLP(nn.Module):
         for name, shape in mlp_spec(cfg, d_ff).items():
             setattr(self, name, _param(shape, dtype, device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (nn.functional.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
+        """With a mesh in ``ctx``: ``wg``/``wu`` column-parallel over
+        ``ff``, ``wd`` row-parallel, the partial sums added over the model
+        axis."""
+        if not sharded(ctx):
+            return (nn.functional.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+        g = ctx.group(ctx.model_axis)
+        x = C.copy_to(x, g)
+        out = (nn.functional.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+        return C.reduce_from(out, g)
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +464,15 @@ def moe_spec(cfg) -> Dict[str, tuple]:
          "wd": (e, fe, d)}
     if cfg.shared_expert:
         s["shared"] = mlp_spec(cfg, cfg.d_ff or cfg.d_expert)
+    return s
+
+
+def moe_axes(cfg) -> Dict[str, tuple]:
+    """The logical axes of :func:`moe_spec`'s leaves."""
+    s = {"router": ("embed", None), "wg": ("experts", "embed", None),
+         "wu": ("experts", "embed", None), "wd": ("experts", None, "embed")}
+    if cfg.shared_expert:
+        s["shared"] = mlp_axes(cfg)
     return s
 
 
@@ -350,17 +570,92 @@ class MoE(nn.Module):
             self.shared = MLP(cfg, dtype=dtype, device=device,
                               d_ff=cfg.d_ff or cfg.d_expert)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
         cfg = self.cfg
         B, S, D = x.shape
         T, E = B * S, cfg.n_experts
         x_flat = x.reshape(T, D)
         wts, ids = moe_route(x_flat, self.router, cfg.top_k)
-        y = self.combine(x_flat, wts, ids, moe_capacity(T, cfg))
+        if not sharded(ctx):
+            y = self.combine(x_flat, wts, ids, moe_capacity(T, cfg))
+        elif ctx.moe_gather_tokens:
+            y = self._gather_tokens(x_flat, wts, ids, ctx)
+        else:
+            y = self._expert_parallel(x_flat, wts, ids, ctx)
         y = y.to(x.dtype).view(B, S, D)
         if cfg.shared_expert:
-            y = y + self.shared(x)
+            y = y + self.shared(x, ctx)
         return y
+
+    def _expert_parallel(self, x_flat, wts, ids, ctx):
+        """EP over the model axis (the reference's psum branch): this
+        rank's experts ``[r E_l, (r + 1) E_l)`` take their capacity of its
+        own tokens (``moe_capacity`` of the local count: per shard), and
+        the float32 partial sums are added over the model axis (in
+        bfloat16 with ``ctx.moe_wire_bf16``)."""
+        g = ctx.group(ctx.model_axis)
+        n_local = self.wg.shape[0]
+        e0 = ctx.index(ctx.model_axis) * n_local
+        x_flat, wts = C.copy_to(x_flat, g), C.copy_to(wts, g)
+        mine = (ids >= e0) & (ids < e0 + n_local)
+        wts = torch.where(mine, wts, torch.zeros_like(wts))
+        ids = torch.where(mine, ids - e0, torch.zeros_like(ids))
+        y = self.combine(x_flat, wts, ids,
+                         moe_capacity(x_flat.shape[0], self.cfg))
+        if ctx.moe_wire_bf16:
+            return C.reduce_from(y.to(torch.bfloat16), g).float()
+        return C.reduce_from(y, g)
+
+    def _gather_tokens(self, x_flat, wts, ids, ctx):
+        """The reference's ``moe_gather_tokens`` branch: the expert weights
+        stay sharded (experts on the model axis, d_model on the batch
+        axes) and are never gathered; the tokens are gathered over the
+        batch axes instead, each expert's first two products contract
+        over this rank's d_model columns and are summed over the batch
+        axes, the third writes this rank's output columns, an all-to-all
+        over the batch axes brings every rank its own rows back, and the
+        experts' outputs are added over the model axis."""
+        cfg = self.cfg
+        g, bg = ctx.group(ctx.model_axis), ctx.group(ctx.batch_axes)
+        n_local = self.wg.shape[0]
+        e0 = ctx.index(ctx.model_axis) * n_local
+        wg, wu, wd = self.wg, self.wu, self.wd
+        D = x_flat.shape[1]
+        dloc = D // ctx.dp_size
+        didx = ctx.index(ctx.batch_axes)
+        if wg.shape[1] == D:
+            # FSDP off: the weights are whole over the batch axes; each
+            # rank takes its d_model columns
+            wg = wg.narrow(1, didx * dloc, dloc)
+            wu = wu.narrow(1, didx * dloc, dloc)
+            wd = wd.narrow(2, didx * dloc, dloc)
+        x_flat, wts = C.copy_to(x_flat, g), C.copy_to(wts, g)
+        xg = C.all_gather(x_flat, 0, bg)
+        wtg = C.all_gather(wts, 0, bg)
+        with torch.no_grad():
+            idg = C.all_gather(ids, 0, bg)
+        Tg = xg.shape[0]
+        cap = moe_capacity(Tg, cfg)
+        y = xg.new_zeros((Tg, dloc), dtype=torch.float32)
+        xpart = xg.narrow(1, didx * dloc, dloc)
+        for le in range(n_local):
+            weight = torch.where(idg == e0 + le, wtg,
+                                 torch.zeros_like(wtg)).sum(dim=1)
+            assigned = weight > 0
+            slots = torch.argsort((~assigned).to(torch.int8), stable=True)
+            slots = slots[:cap]
+            valid = assigned[slots]
+            xe = xpart[slots]
+            part = lambda w: C.copy_to(C.reduce_from(   # noqa: E731
+                (xe @ w).float(), bg), bg)
+            h = nn.functional.silu(part(wg[le])) * part(wu[le])
+            ye = (h.to(xg.dtype) @ wd[le]).float()
+            ye = ye * (weight[slots] * valid)[:, None]
+            y = y.index_add(0, slots, torch.where(valid[:, None], ye,
+                                                  torch.zeros_like(ye)))
+        wire = y.to(torch.bfloat16) if ctx.moe_wire_bf16 else y
+        yl = C.all_to_all(wire, 0, 1, bg)
+        return C.reduce_from(yl, g).float()
 
     def combine(self, x_flat: torch.Tensor, wts: torch.Tensor,
                 ids: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -417,7 +712,9 @@ def _rank_pairs(wts: torch.Tensor, ids: torch.Tensor, n_experts: int,
     assigned = wts > 0
     hits = torch.zeros((ids.shape[0], n_experts), dtype=torch.int32,
                        device=ids.device)
-    hits.scatter_(1, ids, assigned.to(torch.int32))
+    # an add, not a write: EP's pairs of other ranks' experts share a
+    # column with a local pair and must add nothing to it
+    hits.scatter_add_(1, ids, assigned.to(torch.int32))
     rank = (torch.cumsum(hits, dim=0) - hits).gather(1, ids)
     return wts, ids, rank, assigned & (rank < capacity)
 
@@ -464,17 +761,19 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, *, window: int, rope_cs,
                 cache=None, cache_index: Optional[int] = None,
-                causal: bool = True, memory: Optional[torch.Tensor] = None):
+                causal: bool = True, memory: Optional[torch.Tensor] = None,
+                ctx=None):
         eps = self.cfg.norm_eps
         out, kv = self.attn(rmsnorm(x, self.ln1, eps), window=window,
                             rope_cs=rope_cs, cache=cache,
-                            cache_index=cache_index, causal=causal)
+                            cache_index=cache_index, causal=causal, ctx=ctx)
         x = x + out
         if memory is not None:
-            out, _ = self.xattn(rmsnorm(x, self.lnx, eps), memory=memory)
+            out, _ = self.xattn(rmsnorm(x, self.lnx, eps), memory=memory,
+                                ctx=ctx)
             if hasattr(self, "xgate"):
                 out = torch.tanh(self.xgate) * out
             x = x + out
         h = rmsnorm(x, self.ln2, eps)
         ffn = self.moe if hasattr(self, "moe") else self.mlp
-        return x + ffn(h), kv
+        return x + (ffn(h) if ctx is None else ffn(h, ctx)), kv

@@ -34,10 +34,29 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels.ssd_scan import ssd_scan
-from .layers import _param, rmsnorm
+from ..sharding import collectives as C
+from .layers import _param, rmsnorm, sharded
 
-__all__ = ["SSM", "ssd_chunked", "ssd_scan_inputs", "ssm_spec",
+__all__ = ["SSM", "SSM_AXES", "ssd_chunked", "ssd_scan_inputs", "ssm_spec",
            "ssm_state_spec"]
+
+#: the logical axes of :func:`ssm_spec`'s leaves (the reference's): the
+#: inner width and its heads shard on the model axis; B and C are shared
+SSM_AXES = {
+    "wz": ("embed", "ssm_inner"),
+    "wx": ("embed", "ssm_inner"),
+    "wb": ("embed", "state"),
+    "wc": ("embed", "state"),
+    "wdt": ("embed", "ssm_inner"),
+    "dt_bias": ("ssm_inner",),
+    "a_log": ("ssm_inner",),
+    "d_skip": ("ssm_inner",),
+    "conv_x": (None, "ssm_inner"),
+    "conv_b": (None, "state"),
+    "conv_c": (None, "state"),
+    "norm": ("ssm_inner",),
+    "wo": ("ssm_inner", "embed"),
+}
 
 
 def ssm_spec(cfg) -> Dict[str, tuple]:
@@ -137,7 +156,7 @@ class SSM(nn.Module):
             setattr(self, name, _param(shape, dtype, device))
 
     def forward(self, x: torch.Tensor,
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None, ctx=None):
         """* prefill (``state is None``): returns ``(out, new_state)``, the
           state after the last position;
         * decode (``state={"ssm", "conv_x", "conv_b", "conv_c"}`` of one
@@ -146,16 +165,26 @@ class SSM(nn.Module):
           they go).
 
         ``new_state["ssm"]`` is float32 ``(B, H, N, P)``; the conv states
-        are in x's dtype."""
+        are in x's dtype.
+
+        With a mesh in ``ctx`` the block runs this rank's heads: ``wz``,
+        ``wx``, ``wdt`` and the per-head leaves are its shards of the inner
+        width, ``wo`` is row-parallel (its partial sums added over the
+        model axis), B and C are computed whole on every rank, and the
+        gated norm over the sharded inner width adds its sum of squares
+        over the model axis; the state is this rank's heads'."""
         cfg = self.cfg
         B, T, _ = x.shape
-        H, P = cfg.ssm_heads, cfg.ssm_head_dim
+        P = cfg.ssm_head_dim
+        H = self.wdt.shape[1]
         f = torch.float32
-        z = x @ self.wz
-        xs = x @ self.wx
+        g = ctx.group(ctx.model_axis) if sharded(ctx) else None
+        xin = C.copy_to(x, g)
+        z = xin @ self.wz
+        xs = xin @ self.wx
         bm = x @ self.wb
         cm = x @ self.wc
-        dt = F.softplus((x @ self.wdt).to(f) + self.dt_bias.to(f))
+        dt = F.softplus((xin @ self.wdt).to(f) + self.dt_bias.to(f))
         a = -torch.exp(self.a_log.to(f))
 
         st = state or {}
@@ -163,6 +192,8 @@ class SSM(nn.Module):
         bm, ns_b = _causal_conv(bm, self.conv_b, st.get("conv_b"))
         cm, ns_c = _causal_conv(cm, self.conv_c, st.get("conv_c"))
         xs, bm, cm = F.silu(xs), F.silu(bm), F.silu(cm)
+        # shared B and C feed this rank's heads only
+        bm, cm = C.copy_to(bm, g), C.copy_to(cm, g)
         xs_h = xs.reshape(B, T, H, P)
 
         if state is None:
@@ -183,8 +214,15 @@ class SSM(nn.Module):
 
         y = y + xs_h.to(f) * self.d_skip.to(f)[:, None]
         y = y.reshape(B, T, H * P)
-        y = rmsnorm(y.to(x.dtype), self.norm, cfg.norm_eps) * F.silu(z)
-        return y @ self.wo, new_state
+        if not sharded(ctx):
+            y = rmsnorm(y.to(x.dtype), self.norm, cfg.norm_eps) * F.silu(z)
+            return y @ self.wo, new_state
+        y = y.to(x.dtype).float()
+        ssq = (y * y).sum(dim=-1, keepdim=True)
+        ssq = C.copy_to(C.reduce_from(ssq, g), g)
+        y = y * torch.rsqrt(ssq / cfg.d_inner + cfg.norm_eps)
+        y = (y * self.norm.float()).to(x.dtype) * F.silu(z)
+        return C.reduce_from(y @ self.wo, g), new_state
 
 
 def ssm_state_spec(cfg, batch: int,

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -80,17 +80,30 @@ def _chunks(*tensors: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
         yield tuple(f[i:i + CHUNK] for f in flat)
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        shares: Optional[Dict[str, float]] = None,
+                        group=None):
     """Scale every gradient by ``min(1, max_norm / max(norm, 1e-12))``,
     ``norm`` the float32 global norm, each rounded back to its own type,
     **in place**; returns ``(grads, norm)`` with the norm before
-    clipping."""
+    clipping.
+
+    Sharded gradients (each rank holding its shards): ``shares[name]`` is
+    the part of a leaf's squared sum this rank counts (1 over the ranks
+    holding the same shard), and the weighted sum is added over ``group``
+    (every rank of the mesh)."""
     with torch.no_grad():
         sq = None
-        for g in grads.values():
+        for name, g in grads.items():
+            w = shares.get(name, 1.0) if shares else 1.0
             for (c,) in _chunks(g):
                 part = c.float().square().sum()
+                if w != 1.0:
+                    part = part * w
                 sq = part if sq is None else sq + part
+        if group is not None:
+            from ..sharding import collectives
+            collectives.all_reduce_(sq, group)
         gn = torch.sqrt(sq)
         scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
         for g in grads.values():
@@ -101,12 +114,14 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
 
 
 def adamw_update(cfg: AdamWConfig, params: nn.Module,
-                 grads: Dict[str, torch.Tensor], state: Dict[str, object]):
-    """One AdamW step: clips ``grads`` (in place), then updates every
-    parameter of ``params`` and the state's ``m`` and ``v`` **in place**.
-    Returns ``(params, state, {"lr", "grad_norm"})`` with ``state["step"]``
-    advanced, the reference's return."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+                 grads: Dict[str, torch.Tensor], state: Dict[str, object],
+                 shares: Optional[Dict[str, float]] = None, group=None):
+    """One AdamW step: clips ``grads`` (in place; ``shares`` and ``group``
+    as :func:`clip_by_global_norm` takes them, for sharded leaves), then
+    updates every parameter of ``params`` and the state's ``m`` and ``v``
+    **in place**.  Returns ``(params, state, {"lr", "grad_norm"})`` with
+    ``state["step"]`` advanced, the reference's return."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shares, group)
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay

@@ -1,22 +1,35 @@
-"""Train and eval steps, with microbatch buckets that join the gradient
-accumulator one microbatch late.
+"""Train and eval steps, with microbatch buckets whose data-parallel
+reduction overlaps the next microbatch's compute.
 
-The port of the reference's ``repro/train/steps.py`` on one device.  The
-reference's ``hybrid`` schedule (the paper's Fig. 2) carries microbatch
-i's gradient bucket into iteration i + 1, where it joins the float32
-accumulator alongside microbatch i + 1's compute, so that a data-parallel
-reduction of the bucket would overlap that compute; ``serial`` adds each
-bucket as soon as it exists.  Both sum the same buckets in the same order.
-Here, on a CUDA device, the hybrid step issues each bucket's join on a
-side stream that waits for the bucket and runs beside the next
-microbatch's forward and backward on the main stream; the main stream
-waits for the side stream before the optimizer.  On the CPU the join runs
-in line.
+The port of the reference's ``repro/train/steps.py``.  The reference's
+``hybrid`` schedule (the paper's Fig. 2) carries microbatch i's gradient
+bucket into iteration i + 1, where it joins the float32 accumulator
+alongside microbatch i + 1's compute; ``serial`` adds each bucket as soon
+as it exists.  Both sum the same buckets in the same order.
+
+On a mesh (``ctx`` with a mesh; each rank holds its shards and its rows of
+the batch) the bucket's data-parallel reduction is real: the gradients of
+the leaves no batch axis shards are added over the batch axes in one
+all-reduce a bucket.  ``hybrid`` issues bucket i's all-reduce
+(``async_op=True``) as soon as its backward is done and waits for it only
+when the bucket joins in iteration i + 1, so it runs beside microbatch
+i + 1's compute; ``serial`` reduces each bucket at once.  Leaves FSDP
+shards over the batch axes (their ``embed`` dimension) are summed by the
+reduce-scatter of their per-block gather's backward instead, and the
+MoE's ``gather_tokens`` experts see every rank's tokens and need no sum.
+
+On a CUDA device the hybrid step issues each bucket's join on a side
+stream that waits for the bucket (and its all-reduce) and runs beside the
+next microbatch's forward and backward on the main stream; the main
+stream waits for the side stream before the optimizer.  On the CPU the
+join runs in line.
 
 ``compress_grads`` is the reference's bf16 wire format: each bucket is
-rounded to bfloat16 before it joins (hybrid only, as in the reference).
-The accumulated gradient is the mean over microbatches.  A sharding
-(``ctx``, ``grad_pspecs``) raises: ROADMAP Queue A item 12.
+rounded to bfloat16 before it joins, and all-reduced in bfloat16 (hybrid
+only, as in the reference).  The accumulated gradient is the mean over
+microbatches.  Gradients stay in the parameters' layout (``grad_pspecs``,
+when given, must be ``lm.param_pspecs(cfg, ctx)``: the reference's
+sharding constraint holds by construction).
 """
 
 from __future__ import annotations
@@ -28,7 +41,10 @@ import torch
 
 from ..models import lm
 from ..models.config import ModelConfig
+from ..models.layers import sharded
 from ..optim.adamw import AdamWConfig, adamw_update
+from ..sharding import collectives as C
+from ..sharding.rules import axes_of
 
 __all__ = ["StepConfig", "make_decode_step", "make_eval_step",
            "make_prefill_step", "make_train_step"]
@@ -42,13 +58,13 @@ class StepConfig:
     remat: bool = True
 
 
-def _value_and_grad(params, cfg: ModelConfig, batch, remat: bool):
+def _value_and_grad(params, cfg: ModelConfig, batch, remat: bool, ctx=None):
     """``(loss, {name: grad})`` of ``lm.loss_fn`` at ``batch``; every
     parameter gets a gradient (zeros where it took no part, as
     ``jax.value_and_grad`` gives)."""
     names, leaves = zip(*params.named_parameters())
     with torch.enable_grad():
-        loss = lm.loss_fn(params, cfg, batch, remat=remat)
+        loss = lm.loss_fn(params, cfg, batch, ctx, remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), {n: g.contiguous() for n, g in zip(names, grads)}
@@ -58,23 +74,83 @@ def _on_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _join(acc: Dict[str, torch.Tensor], bucket: Dict[str, torch.Tensor],
-          compress: bool, stream: Optional["torch.cuda.Stream"]) -> None:
+class _Bucket:
+    """One microbatch's gradients and the all-reduce, over the batch
+    axes, of those no batch axis shards (``names``): one buffer (in
+    bfloat16 with ``compress``), issued at once."""
+
+    def __init__(self, grads: Dict[str, torch.Tensor], names, group,
+                 compress: bool, async_op: bool):
+        self.grads, self.names = grads, names
+        self.flat = self.work = None
+        if group is None or not names:
+            return
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        self.flat = flat.to(torch.bfloat16) if compress else flat
+        self.work = C.all_reduce_(self.flat, group, async_op=async_op)
+
+    def ready(self) -> Dict[str, torch.Tensor]:
+        """The gradients, the reduced leaves summed over the batch axes
+        (waiting for the all-reduce on the current stream)."""
+        if self.flat is None:
+            return self.grads
+        if self.work is not None:
+            self.work.wait()
+        i = 0
+        for n in self.names:
+            g = self.grads[n]
+            self.grads[n] = self.flat[i:i + g.numel()].view(g.shape)
+            i += g.numel()
+        return self.grads
+
+
+def _join(acc: Dict[str, torch.Tensor], bucket: _Bucket, compress: bool,
+          stream: Optional["torch.cuda.Stream"]) -> None:
     """``acc += wire(bucket)``, leaf by leaf (float32 accumulator).  With a
-    side ``stream``, the adds are issued there after the bucket is ready on
-    the current stream, and the bucket's memory is kept until they ran."""
+    side ``stream``, the wait for the bucket's all-reduce and the adds are
+    issued there after the bucket is ready on the current stream, and the
+    bucket's memory is kept until they ran."""
     def add():
-        for n, g in bucket.items():
+        grads = bucket.ready()
+        for n, g in grads.items():
             acc[n].add_(g.to(torch.bfloat16) if compress else g)
+        return grads
 
     if stream is None:
         add()
         return
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        add()
-    for g in bucket.values():
+        grads = add()
+    for g in list(grads.values()) + ([bucket.flat] if bucket.flat is not None
+                                     else []):
         g.record_stream(stream)
+
+
+def _dp_names(cfg: ModelConfig, ctx):
+    """The leaves whose gradients the step adds over the batch axes: those
+    no batch axis shards."""
+    if not sharded(ctx) or ctx.dp_size == 1:
+        return ()
+    batch = set(ctx.batch_axes)
+    return tuple(n for n, spec in lm._name_pspecs(cfg, ctx).items()
+                 if not any(set(axes_of(e)) & batch for e in spec))
+
+
+def _norm_shares(cfg: ModelConfig, ctx):
+    """``(shares, group)`` for the global gradient norm over the mesh: each
+    leaf's squared sum counted once over the ranks holding the same shard
+    (None without a mesh)."""
+    if not sharded(ctx):
+        return None, None
+    world = ctx.size(ctx.batch_axes + (ctx.model_axis,))
+    shares = {}
+    for n, spec in lm._name_pspecs(cfg, ctx).items():
+        shards = 1
+        for e in spec:
+            shards *= ctx.size(axes_of(e))
+        shares[n] = shards / world
+    return shares, ctx.group(ctx.batch_axes + (ctx.model_axis,))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
@@ -88,22 +164,30 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
     ``"tokens"`` and ``"labels"`` ``(B, S)`` (and an encdec's
     ``"enc_input"`` or a vlm's ``"patches"``), numpy or tensors; with
     ``microbatches = m`` it is cut into m equal slices of the batch axis."""
-    if ctx is not None or grad_pspecs is not None:
-        raise NotImplementedError(
-            "sharded train steps are not ported to repro_torch yet; see "
-            "ROADMAP Queue A item 12 (sharding/)")
+    if grad_pspecs is not None and (not sharded(ctx) or grad_pspecs
+                                    != lm.param_pspecs(cfg, ctx)):
+        raise ValueError("gradients take the parameters' layout: "
+                         "grad_pspecs must be lm.param_pspecs(cfg, ctx)")
     if step_cfg.overlap not in ("hybrid", "serial"):
         raise ValueError(f"overlap must be 'hybrid' or 'serial', got "
                          f"{step_cfg.overlap!r}")
     micro = step_cfg.microbatches
     streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+    names = _dp_names(cfg, ctx)
+    group = ctx.group(ctx.batch_axes) if names else None
+    shares, norm_group = _norm_shares(cfg, ctx)
+
+    def update(params, grads, opt_state):
+        return adamw_update(opt_cfg, params, grads, opt_state, shares,
+                            norm_group)
 
     def single(params, opt_state, batch):
         params.requires_grad_(True)
         batch = _on_device(batch, params.device)
-        loss, grads = _value_and_grad(params, cfg, batch, step_cfg.remat)
-        params, opt_state, info = adamw_update(opt_cfg, params, grads,
-                                               opt_state)
+        loss, grads = _value_and_grad(params, cfg, batch, step_cfg.remat,
+                                      ctx)
+        grads = _Bucket(grads, names, group, False, False).ready()
+        params, opt_state, info = update(params, grads, opt_state)
         return params, opt_state, {"loss": loss, **info}
 
     if micro == 1:
@@ -125,14 +209,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
         loss_sum = 0.0
         if step_cfg.overlap == "serial":
             for mb in mbs:
-                loss, g = _value_and_grad(params, cfg, mb, step_cfg.remat)
-                _join(acc, g, False, None)
+                loss, g = _value_and_grad(params, cfg, mb, step_cfg.remat,
+                                          ctx)
+                _join(acc, _Bucket(g, names, group, False, False), False,
+                      None)
                 loss_sum = loss_sum + loss
                 del g
         else:
-            # bucket i joins while microbatch i + 1 computes; the
-            # reference's first join adds a zero bucket, which changes no
-            # bit and is skipped
+            # bucket i's all-reduce runs while microbatch i + 1 computes,
+            # and the bucket joins then; the reference's first join adds a
+            # zero bucket, which changes no bit and is skipped
             stream = None
             if dev.type == "cuda":
                 stream = streams.setdefault(dev, torch.cuda.Stream(dev))
@@ -140,7 +226,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
             for mb in mbs:
                 if prev is not None:
                     _join(acc, prev, step_cfg.compress_grads, stream)
-                loss, prev = _value_and_grad(params, cfg, mb, step_cfg.remat)
+                loss, g = _value_and_grad(params, cfg, mb, step_cfg.remat,
+                                          ctx)
+                prev = _Bucket(g, names, group, step_cfg.compress_grads,
+                               True)
                 loss_sum = loss_sum + loss
             _join(acc, prev, step_cfg.compress_grads, stream)
             del prev
@@ -148,8 +237,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
                 torch.cuda.current_stream().wait_stream(stream)
         for a in acc.values():
             a.div_(micro)
-        params, opt_state, info = adamw_update(opt_cfg, params, acc,
-                                               opt_state)
+        params, opt_state, info = update(params, acc, opt_state)
         return params, opt_state, {"loss": loss_sum / micro, **info}
 
     return accumulated

@@ -1152,3 +1152,64 @@ def test_reduced_ssm_train_step_on_card_matches_the_cpu(cuda, arch):
                       .abs().ravel() for n, p in card.named_parameters()])
     assert diff.max().item() <= 2 * opt_cfg.lr
     assert (diff > 1e-6).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,length,window", [(545, 545, 0), (1600, 1000, 64),
+                                             (545, 3, 0), (545, 0, 0)])
+def test_decode_attention_lse_against_its_plain_version(cuda, dtype, S,
+                                                        length, window):
+    """``return_lse=True``: the output has the bits of the call without
+    it, the log-sum-exp is the plain version's within 1e-4 (chip_smoke's
+    LSE_TOL: float32 sums over at most 1,600 keys in another order), and
+    -inf exactly where no key is valid."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
+               for s in ((2, 40, 128), (2, S, 8, 128), (2, S, 8, 128)))
+    out = decode_attention(q, k, v, length, window=window)
+    out2, lse = decode_attention(q, k, v, length, window=window,
+                                 return_lse=True)
+    assert torch.equal(out, out2)
+    _, ref = decode_attention_ref(q, k, v, length, window=window,
+                                  return_lse=True)
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(ref))
+    fin = torch.isfinite(ref)
+    if fin.any():
+        assert (lse[fin] - ref[fin]).abs().max().item() <= 1e-4
+
+
+def test_one_rank_nccl_mesh_decode_step_matches_ctx_none(cuda):
+    """A reduced qwen3 on an NCCL mesh of one rank, (1, 1): prefill and
+    decode through ``make_ctx`` give the ``ctx=None`` logits bit for bit
+    (every collective is on one rank, the arithmetic is the same)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import make_ctx
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        cfg = get_config("qwen3-14b").reduced(dtype="bfloat16")
+        model = lm.init_params(cfg, 0, "cuda")
+        ctx = make_ctx(make_debug_mesh(1, 1), cfg)
+        local = lm.shard_params(model, ctx, copy=False)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+        c0, o0 = lm.prefill(model, cfg, {"tokens": tokens}, max_len=30)
+        c1, o1 = lm.prefill(local, cfg, {"tokens": tokens}, ctx, max_len=30)
+        assert torch.equal(o0, o1)
+        for _ in range(4):
+            t = o0.argmax(-1)
+            c0, o0 = lm.decode_step(model, cfg, c0, t)
+            c1, o1 = lm.decode_step(local, cfg, c1, t, ctx)
+            assert torch.equal(o0, o1)
+    finally:
+        dist.destroy_process_group()

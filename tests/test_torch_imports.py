@@ -34,6 +34,13 @@ def test_port_imports_without_jax_or_reference_package():
         "import repro_torch.checkpoint.tasks\n"
         "import repro_torch.train, repro_torch.train.steps\n"
         "import repro_torch.train.trainer, repro_torch.train.train_lm\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules\n"
+        "import repro_torch.sharding.collectives\n"
+        "import repro_torch.launch, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.shapes, repro_torch.launch.analysis\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.perf_iter\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -33,6 +33,7 @@ from repro_torch.models import (decode_step, greedy_sample, init_params,
                                 make_decode_state, params_from_reference,
                                 prefill, zeros_cache)
 from repro_torch.models.lm import layer_flags, padded_vocab
+from repro_torch.sharding import ShardCtx
 
 RTOL = ATOL = 1e-4
 PROMPT, STEPS, BATCH = 80, 8, 2
@@ -175,7 +176,8 @@ def test_other_families_raise_naming_the_roadmap_item():
     """Every family the repo configures builds and prefills on the CPU (the
     moe, encdec and vlm families raised here until they were ported); what
     the port still lacks, a sharding context, raises naming its ROADMAP
-    item."""
+    item; a sharding context without a mesh is the ctx=None path, bit for
+    bit (the sharded paths run in test_torch_sharding.py)."""
     rng = np.random.default_rng(0)
     by_family = {}
     for arch in ARCHS:
@@ -197,8 +199,8 @@ def test_other_families_raise_naming_the_roadmap_item():
         assert logits.shape == (1, 1, padded_vocab(cfg)), family
         assert torch.isfinite(logits).all(), family
         assert cache["index"] == 6
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
-            prefill(model, cfg, batch, ctx=object())
+        _, again = prefill(model, cfg, batch, ctx=ShardCtx(mesh=None))
+        assert torch.equal(again, logits), family
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

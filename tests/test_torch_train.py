@@ -73,6 +73,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.train import (StepConfig, Trainer, TrainerConfig,
                                make_eval_step, make_train_step)
 from repro_torch.train import train_lm
+from repro_torch.sharding import ShardCtx
 from test_torch_moe import reference_tree
 from torch_lr_witness import example_cfgs, trajectories
 
@@ -272,8 +273,9 @@ def test_ce_loss_masks_padded_vocabulary_and_negative_labels():
     w2 = w.clone()
     w2[:, 500:] = 1e3                    # pad columns cannot move it
     assert torch.equal(sharded_ce_loss(h, w2, labels, cfg), loss)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sharded_ce_loss(h, w, labels, cfg, ctx=object())
+    # a context without a mesh is the ctx=None form, bit for bit
+    assert torch.equal(sharded_ce_loss(h, w, labels, cfg,
+                                       ctx=ShardCtx(mesh=None)), loss)
 
 
 def test_hybrid_shared_block_gathers_a_gradient_from_each_use():
@@ -550,10 +552,13 @@ def test_serial_and_hybrid_steps_give_the_same_bits():
 
 def test_sharded_steps_and_bad_options_raise():
     _, cfg = tiny_cfgs()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(cfg, AdamWConfig(), object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # gradients keep the parameters' layout: no other grad_pspecs, and
+    # none without a mesh (sharded steps run in test_torch_sharding.py)
+    with pytest.raises(ValueError, match="layout"):
         make_train_step(cfg, AdamWConfig(), None, grad_pspecs={})
+    with pytest.raises(ValueError, match="layout"):
+        make_train_step(cfg, AdamWConfig(), ShardCtx(mesh=None),
+                        grad_pspecs={})
     with pytest.raises(ValueError, match="overlap"):
         make_train_step(cfg, AdamWConfig(), None, StepConfig(overlap="x"))
     model = init_params(cfg, device="cpu")
@@ -718,8 +723,9 @@ def test_entry_points_raise_without_cuda_unless_given_the_cpu(tmp_path):
         Trainer(cfg, AdamWConfig(), tcfg, dcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lm.main(["--steps", "1", "--ckpt", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(cfg, AdamWConfig(), tcfg, dcfg, shardings={}, device="cpu")
+    # explicit restore placements are taken as given
+    assert Trainer(cfg, AdamWConfig(), tcfg, dcfg, shardings={},
+                   device="cpu").shardings == {}
     assert dataclasses.replace(tcfg, steps=1).steps == 1
 
 
