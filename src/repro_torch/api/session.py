@@ -53,7 +53,8 @@ Scheduler semantics
 
 ``trace=True`` turns the flight recorder on: ``RunReport.trace`` is the
 run's assembled :class:`~repro_torch.obs.trace.RuntimeTrace`
-(``repro_torch.obs.write_trace`` exports it for Perfetto).
+(``repro_torch.obs.write_trace`` exports it for Perfetto); a compiled
+run's holds its ``repro.compiled.*`` spans (:mod:`repro_torch.obs.spans`).
 
 ``procs=N`` gives the session a pool of worker *processes*
 (:mod:`repro_torch.mp`, :meth:`Session.process_pool`): :meth:`Session.map`
@@ -641,7 +642,7 @@ class Session:
             self.cache.store(recording)
         try:
             ex = self._compiled_executor(tg, recording)
-            results = ex.run(tg, check_digest=False)
+            results = ex.run(tg, check_digest=False, trace=self.trace)
             stats = dict(ex.stats)
         except (CompileError, CompiledRunError) as e:
             # stale/unlowerable plan: drop the executable and serve this
@@ -653,7 +654,8 @@ class Session:
             return report
         return RunReport(results=results, plan=plan, recording=recording,
                          wall_s=0.0, scheduler=self.scheduler,
-                         n_workers=self.workers, stats=stats, trace=None)
+                         n_workers=self.workers, stats=stats,
+                         trace=ex.last_trace)
 
     def map(self, builder, inputs, *, record: Optional[bool] = None,
             key: Optional[Any] = None, timeout: float = 300.0,

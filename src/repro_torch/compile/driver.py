@@ -30,6 +30,16 @@ so ``stats["body_s"]`` and ``stats["wall_s"]`` are host seconds up to the
 enqueue; time the device by bracketing :meth:`CompiledExecutor.run` with
 ``torch.cuda.synchronize()``.
 
+A run under a torch profiler, or with ``trace=True``, records its spans
+(:mod:`repro_torch.obs.spans`): ``repro.compiled.run``, and inside it
+``repro.compiled.bind``, one span a program entry
+(``repro.compiled.graph``, a captured segment's replay;
+``repro.compiled.segment``, a fused segment run as it is;
+``repro.compiled.task``, an opaque body or a frame's resume) and
+``repro.compiled.release``, each with its device interval on CUDA; the
+clock reads that time the bodies and binds for ``stats`` time the spans
+too.
+
 Limitation: suspension must use generator frames (``yield ctx.recv(...)``).
 A *plain* body that blocks on an empty channel would deadlock a
 single-threaded driver; the adapter raises :class:`CompiledRunError`
@@ -56,11 +66,17 @@ from ..core.taskgraph import (
     WaitAnyRequest,
     YieldRequest,
 )
+from ..obs import spans
 from ..replay.graph_key import graph_key
 from ..resources.arbiter import grants_by_resource, task_needs
 from .plan import CompiledPlan
 
 __all__ = ["CompiledExecutor", "CompiledRunError"]
+
+_RUN, _BIND, _RELEASE = ("repro.compiled.run", "repro.compiled.bind",
+                         "repro.compiled.release")
+_GRAPH, _SEGMENT, _TASK = ("repro.compiled.graph", "repro.compiled.segment",
+                           "repro.compiled.task")
 
 
 class CompiledRunError(RuntimeError):
@@ -159,12 +175,14 @@ class CompiledExecutor:
     run's device work, and ``stats`` adds ``captured_graphs`` (segments
     holding a CUDA graph), ``graphs_captured_this_run``, ``capture_s``
     (this run's capture seconds) and ``bind_s`` (this run's bulk copies in
-    and out)."""
+    and out).  ``last_trace`` is the spans of a traced run (a
+    :class:`~repro_torch.obs.trace.RuntimeTrace`), None otherwise."""
 
     def __init__(self, graph: TaskGraph, plan: CompiledPlan):
         self.plan = plan
         self.graph = graph
         self.stats: Dict[str, Any] = {}
+        self.last_trace = None
         self._adapter = _SerialRuntimeAdapter()
         # the state keys the capturable segments touch: bound to storage
         # of this executor's own when a run's state lives on CUDA
@@ -180,7 +198,8 @@ class CompiledExecutor:
 
     # ------------------------------------------------------------------
     def run(self, graph: Optional[TaskGraph] = None, *,
-            check_digest: bool = True) -> Dict[int, Any]:
+            check_digest: bool = True, trace: bool = False
+            ) -> Dict[int, Any]:
         tg = graph if graph is not None else self.graph
         if check_digest and tg is not self.graph:
             if graph_key(tg).digest != self.plan.recording.digest:
@@ -231,16 +250,25 @@ class CompiledExecutor:
 
         remaining: List[Tuple[Any, ...]] = list(self.plan.program)
         t_start = perf()
+        sp = spans.open_call(_RUN, traced=trace, t=t_start)
+        self.last_trace = None
         # on CUDA the captured graphs run against the executor's storage:
         # the run's tensors are copied in here and back out at the end
         binding = self._binding
-        mine = binding.bind(state) if binding is not None else None
-        if mine is None:
-            binding = None
-        else:
-            captured0, capture_s0 = binding.captured, binding.capture_s
-        bind_s = perf() - t_start
+        mine = None
+        graphs = 0
         try:
+            if sp is not None:
+                sid = sp.begin(_BIND, t_start)
+            mine = binding.bind(state) if binding is not None else None
+            if mine is None:
+                binding = None
+            else:
+                captured0, capture_s0 = binding.captured, binding.capture_s
+            t1 = perf()
+            bind_s = t1 - t_start
+            if sp is not None:
+                sp.end(sid, t1)
             while remaining:
                 ran_index = -1
                 for i, entry in enumerate(remaining):
@@ -253,8 +281,16 @@ class CompiledExecutor:
                             continue
                         log_grants(seg.tids)
                         t0 = perf()
+                        if sp is not None:
+                            # no entry enters the profiler's trace: the 511
+                            # of an n = 7,680 factorization would cost the
+                            # card ~5 points of its busy share (PERF.md §6)
+                            captured = binding is not None and seg.jitted
+                            graphs += captured
+                            sid = sp.begin(_GRAPH if captured else _SEGMENT,
+                                           t0, mirror=False)
                         seg(state, results, binding)
-                        body_s += perf() - t0
+                        t1 = perf()
                         completed.update(seg.tids)
                     elif kind == "task":
                         tid = entry[1]
@@ -265,9 +301,11 @@ class CompiledExecutor:
                             continue
                         log_grants((tid,))
                         t0 = perf()
+                        if sp is not None:
+                            sid = sp.begin(_TASK, t0, mirror=False)
                         done = self._start_task(tg, task, results, frames,
                                                 adapter)
-                        body_s += perf() - t0
+                        t1 = perf()
                         if done:
                             completed.add(tid)
                     else:  # ("resume", tid, seg)
@@ -281,10 +319,15 @@ class CompiledExecutor:
                             continue
                         frame.resumes += 1
                         t0 = perf()
+                        if sp is not None:
+                            sid = sp.begin(_TASK, t0, mirror=False)
                         done = self._advance(frame, value, results, frames)
-                        body_s += perf() - t0
+                        t1 = perf()
                         if done:
                             completed.add(tid)
+                    body_s += t1 - t0
+                    if sp is not None:
+                        sp.end(sid, t1)
                     ran_index = i
                     break
                 if ran_index < 0:
@@ -297,11 +340,25 @@ class CompiledExecutor:
                 skip_ahead += ran_index
                 del remaining[ran_index]
         finally:
-            if binding is not None:
+            if mine is not None:
                 t0 = perf()
+                if sp is not None:
+                    sid = sp.begin(_RELEASE, t0)
                 binding.release(state, mine)
-                bind_s += perf() - t0
-        wall_s = perf() - t_start
+                t1 = perf()
+                bind_s += t1 - t0
+                if sp is not None:
+                    sp.end(sid, t1)
+            t_end = perf()
+            if sp is not None:
+                sp.count("repro.compiled.entries",
+                         len(self.plan.program) - len(remaining))
+                sp.count("repro.compiled.graphs", graphs)
+                sp.count("repro.compiled.skip_ahead", skip_ahead)
+                sp.close(t_end)
+                if trace:
+                    self.last_trace = spans.span_trace(root=sp.root)
+        wall_s = t_end - t_start
 
         if frames:
             raise CompiledRunError(

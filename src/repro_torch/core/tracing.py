@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # span kinds (simulator Trace + assembled RuntimeTrace share these)
@@ -64,6 +64,10 @@ EV_RUN_AHEAD = "run_ahead"            # a=tid
 EV_RESOURCE_ACQUIRE = "resource_acquire"  # a=tid, b=n_res   label=task name
 EV_RESOURCE_WAIT = "resource_wait"    # a=tid (task deferred on contention)
 EV_RESOURCE_RELEASE = "resource_release"  # a=tid, b=n_res
+# spans of the program's top-level calls (repro_torch.obs.spans)
+EV_SPAN_BEGIN = "span_begin"          # a=span id, b=parent id    label=name
+EV_SPAN_END = "span_end"              # a=span id, b=shared id (a rid, or -1)
+EV_SPAN_COUNT = "span_count"          # a=span id, b=value        label=counter
 
 EVENT_KINDS = frozenset({
     EV_TASK_START, EV_TASK_END, EV_STEAL_ATTEMPT, EV_STEAL_HIT,
@@ -72,16 +76,27 @@ EVENT_KINDS = frozenset({
     EV_BLOCK, EV_UNBLOCK, EV_DEADLOCK_POLL, EV_PARK, EV_WAKE,
     EV_REPLAY_FALLBACK, EV_REPLAY_STALL, EV_REPLAY_SKIP, EV_RUN_AHEAD,
     EV_RESOURCE_ACQUIRE, EV_RESOURCE_WAIT, EV_RESOURCE_RELEASE,
+    EV_SPAN_BEGIN, EV_SPAN_END, EV_SPAN_COUNT,
 })
 
 
 @dataclasses.dataclass
 class Event:
+    """One span of a worker's time.  A span of the program's own
+    (:mod:`repro_torch.obs.spans`) also carries its id, its parent's id
+    (-1 at the top), the id it shares with other spans (a request's rid,
+    or -1), and the device's interval between its start and end, on the
+    same clock as ``t0``/``t1`` (None where no device event was taken)."""
+
     worker: int
     t0: float
     t1: float
     kind: str
     label: str = ""
+    sid: int = -1
+    parent: int = -1
+    key: int = -1
+    dev: Optional[Tuple[float, float]] = None
 
     @property
     def dt(self) -> float:

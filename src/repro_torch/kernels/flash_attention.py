@@ -27,7 +27,12 @@ forward is the launch (or plain version) and whose backward is
 :func:`flash_attention_bwd`, written in torch ops; autograd records it only
 when grad mode is on and q, k or v requires grad, so serving's calls carry
 no history.  The reference has no backward kernel either: its training
-differentiates ``layers._chunked_attn`` with ``jax.grad``.
+differentiates ``layers._chunked_attn`` with ``jax.grad``.  Inside a
+traced top-level call (a train step or an engine step under a profiler,
+:mod:`repro_torch.obs.spans`) each forward, remat's included, is a
+``repro.flash.fwd`` span and each backward a ``repro.flash.bwd`` one,
+with its device interval; they stay out of the profiler's trace, which
+names the kernel and the backward's autograd node already.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` and the body of ``repro/models/layers.py::_chunked_attn``
@@ -44,6 +49,7 @@ import numbers
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..obs import spans
 from . import cuda_lib
 from .ref import flash_attention_ref
 
@@ -176,7 +182,11 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
+        sp = spans.current()
+        sid = sp.begin("repro.flash.fwd", mirror=False) if sp else 0
         out = _forward(q, k, v, causal, window, q_offset)
+        if sp is not None:
+            sp.end(sid)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal, ctx.window = bool(causal), int(window)
         return out
@@ -185,8 +195,12 @@ class FlashAttentionFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
+        sp = spans.current()
+        sid = sp.begin("repro.flash.bwd", mirror=False) if sp else 0
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
                                          causal=ctx.causal, window=ctx.window)
+        if sp is not None:
+            sp.end(sid)
         return dq, dk, dv, None, None, None
 
 

@@ -10,7 +10,11 @@ Open the exported file in https://ui.perfetto.dev or ``chrome://tracing``:
 * flow arrows (``ph: "s"``/``"f"``) connect steal victims to thieves and
   channel sends to the frame resume segment they woke;
 * frame suspensions are instant markers (``ph: "i"``) labelled with the
-  suspended request (``recv(chan)@uid``).
+  suspended request (``recv(chan)@uid``);
+* the program's spans (``repro.*``) are slices on the row of the thread
+  that made them (``external`` for the process's recorder), nested by
+  time, with their ids in ``args``; each device interval is a slice of
+  its span's name on a ``device`` row.
 
 Exact round-trip: Perfetto wants integer-ish microseconds in ``ts``/
 ``dur``, which does not survive ``*1e6 / 1e6`` float trips — so every
@@ -27,7 +31,7 @@ import json
 import os
 from typing import Any, Dict, List, Optional
 
-from ..core.tracing import SPAN_KINDS
+from ..core.tracing import SPAN_KINDS, Event
 from .trace import RuntimeTrace
 
 __all__ = ["to_perfetto", "write_trace", "load_trace", "validate_trace_json"]
@@ -65,6 +69,25 @@ def to_perfetto(trace: RuntimeTrace, *,
                   "cat": e.kind, "args": {"t0": e.t0, "t1": e.t1,
                                           "kind": e.kind, "label": e.label}}
         tev.append(ev)
+
+    dev_tid = trace.n_workers + 1
+    if any(e.dev is not None for e in trace.spans):
+        tev.append({"ph": "M", "pid": _PID, "tid": dev_tid,
+                    "name": "thread_name", "args": {"name": "device"}})
+    for e in trace.spans:
+        args = {"t0": e.t0, "t1": e.t1, "kind": e.kind, "label": e.label,
+                "worker": e.worker, "sid": e.sid, "parent": e.parent,
+                "key": e.key}
+        if e.dev is not None:
+            args["dev"] = list(e.dev)
+            tev.append({"ph": "X", "pid": _PID, "tid": dev_tid,
+                        "ts": _us(e.dev[0]), "dur": _us(e.dev[1] - e.dev[0]),
+                        "name": e.label, "cat": e.kind,
+                        "args": {"device_of": e.sid}})
+        tev.append({"ph": "X", "pid": _PID,
+                    "tid": e.worker if e.worker >= 0 else trace.n_workers,
+                    "ts": _us(e.t0), "dur": _us(e.t1 - e.t0),
+                    "name": e.label, "cat": e.kind, "args": args})
 
     flow_id = 0
     for (victim, thief, t, label) in trace.steal_flows:
@@ -143,7 +166,15 @@ def load_trace(obj: Any) -> RuntimeTrace:
     for ev in obj.get("traceEvents", []):
         ph = ev.get("ph")
         args = ev.get("args", {})
-        if ph in ("X", "i") and "kind" in args:
+        if ph == "X" and "sid" in args:
+            dev = args.get("dev")
+            rt.spans.append(Event(
+                int(args["worker"]), float(args["t0"]),
+                float(args["t1"]), str(args["kind"]), str(args["label"]),
+                sid=int(args["sid"]), parent=int(args["parent"]),
+                key=int(args["key"]),
+                dev=None if dev is None else (float(dev[0]), float(dev[1]))))
+        elif ph in ("X", "i") and "kind" in args:
             rt.record(int(ev["tid"]), float(args["t0"]), float(args["t1"]),
                       str(args["kind"]), str(args.get("label", "")))
         elif ph == "s":
@@ -159,6 +190,7 @@ def load_trace(obj: Any) -> RuntimeTrace:
             rt.resume_latencies.append(
                 max(0.0, float(fl["t1"]) - float(fl["t0"])))
     rt.events.sort(key=lambda e: (e.t0, e.worker, e.t1))
+    rt.spans.sort(key=lambda e: (e.t0, e.sid))
     return rt
 
 

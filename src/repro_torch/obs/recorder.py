@@ -122,13 +122,15 @@ class FlightRecorder:
 
     enabled = True
 
-    def __init__(self, n_workers: int, capacity: int = 1 << 15):
+    def __init__(self, n_workers: int, capacity: int = 1 << 15, *,
+                 owned: bool = True):
         self.n_workers = n_workers
         # ring [-1] is the external ring: Python's negative indexing makes
         # `rings[worker]` correct for worker ids in [-1, n_workers)
         self.rings = [_Ring(capacity) for _ in range(n_workers + 1)]
         self._ext_lock = threading.Lock()
-        _live.add(self)
+        if owned:               # the process's span recorder is no session's
+            _live.add(self)
 
     def emit(self, worker, kind, label="", a=-1, b=-1):
         if worker >= 0:
@@ -136,6 +138,13 @@ class FlightRecorder:
         else:
             with self._ext_lock:
                 self.rings[-1].append((perf_counter(), kind, label, a, b))
+
+    def emit_at(self, t, kind, label, a, b):
+        """An event on the external ring stamped by the caller, whose one
+        clock read also feeds its own accounting
+        (:mod:`repro_torch.obs.spans`)."""
+        with self._ext_lock:
+            self.rings[-1].append((t, kind, label, a, b))
 
     # -- hot-path helpers: label building lives HERE, not at call sites,
     # so a NullRecorder call allocates nothing ---------------------------

@@ -17,6 +17,11 @@ span instead of double-counting it, so per-worker busy time never exceeds
 wall clock.  Steals, replay fallbacks and frame suspensions additionally
 land as zero-length ``steal``/``switch`` marker events so ``count()``
 reconciles exactly with ``RunReport.stats``.
+
+The program's own spans (:mod:`repro_torch.obs.spans`) nest, so they are
+kept apart from the worker timeline, in ``RuntimeTrace.spans``: one
+``compute`` :class:`Event` a span with its id, parent, shared id and
+device interval, and its counters summed into ``counters`` by name.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ from ..core.tracing import (
     EV_RESOURCE_RELEASE,
     EV_RESOURCE_WAIT,
     EV_RUN_AHEAD,
+    EV_SPAN_BEGIN,
+    EV_SPAN_COUNT,
+    EV_SPAN_END,
     EV_STEAL_ATTEMPT,
     EV_STEAL_HIT,
     EV_TASK_END,
@@ -119,6 +127,9 @@ class RuntimeTrace(Trace):
         #: arbiter defer window (task time, not worker time: the deferring
         #: worker moves on)
         self.resource_waits: List[Tuple[int, float, float]] = []
+        #: the program's spans (``repro.*``), nested by ``parent``; kept
+        #: off ``events``, whose per-worker spans never overlap
+        self.spans: List[Event] = []
         self._metrics_cache: Optional[Dict[str, Any]] = None
 
     # -- equality is exact: events, counters and flow edges round-trip ----
@@ -127,6 +138,7 @@ class RuntimeTrace(Trace):
             return NotImplemented
         return (self.n_workers == other.n_workers
                 and self.events == other.events
+                and self.spans == other.spans
                 and self.counters == other.counters
                 and self.dropped == other.dropped
                 and self.steal_flows == other.steal_flows
@@ -251,11 +263,14 @@ def _close_key(ev: str, a: int, b: int) -> Any:
 
 
 def assemble(snapshot: List[Tuple[int, float, str, str, int, int]],
-             n_workers: int, *, dropped: int = 0) -> RuntimeTrace:
+             n_workers: int, *, dropped: int = 0,
+             devices: Optional[Dict[int, Tuple[float, float]]] = None
+             ) -> RuntimeTrace:
     """Build a :class:`RuntimeTrace` from a recorder snapshot (``(worker,
     t, kind, label, a, b)`` tuples, any order).  Timestamps are shifted so
     the earliest event is ``t=0`` (simulator convention; keeps
-    ``makespan`` meaningful)."""
+    ``makespan`` meaningful).  ``devices`` maps a span's id to its device
+    interval on the snapshot's clock."""
     rt = RuntimeTrace(n_workers)
     rt.dropped = dropped
     if not snapshot:
@@ -323,8 +338,20 @@ def assemble(snapshot: List[Tuple[int, float, str, str, int, int]],
                 cur_t = t_end
 
     # flows + counters need the global stream (wakes land on other workers)
+    opened: Dict[int, Tuple[int, float, str, int]] = {}
     for (w, t, ev, label, a, b) in events:
         t -= t_base
+        if ev == EV_SPAN_BEGIN:
+            opened[a] = (w, t, label, b)
+            continue
+        if ev == EV_SPAN_END:
+            begun = opened.pop(a, None)
+            if begun is not None:       # its begin may have been dropped
+                rt.spans.append(_span(begun, a, t, b, devices, t_base))
+            continue
+        if ev == EV_SPAN_COUNT:
+            counters[label] += b
+            continue
         for cname, ckind in _COUNTER_EVENTS.items():
             if ev == ckind:
                 counters[cname] += 1
@@ -351,6 +378,9 @@ def assemble(snapshot: List[Tuple[int, float, str, str, int, int]],
                 rt.frame_flows.append((src_w, t_wake, w, t, flow_label))
                 rt.resume_latencies.append(max(0.0, t - t_wake))
 
+    for sid, begun in opened.items():          # open at the trace's end
+        rt.spans.append(_span(begun, sid, t_end, -1, devices, t_base))
+    rt.spans.sort(key=lambda e: (e.t0, e.sid))
     spans.sort(key=lambda e: (e.t0, e.worker, e.t1))
     rt.events = spans
     for k in _COUNTER_EVENTS:
@@ -358,3 +388,13 @@ def assemble(snapshot: List[Tuple[int, float, str, str, int, int]],
     rt.counters = dict(counters)
     rt.steal_victims = victims
     return rt
+
+
+def _span(begun: Tuple[int, float, str, int], sid: int, t1: float, key: int,
+          devices: Optional[Dict[int, Tuple[float, float]]],
+          t_base: float) -> Event:
+    w, t0, name, parent = begun
+    d = devices.get(sid) if devices else None
+    return Event(w, t0, t1, KIND_COMPUTE, name, sid=sid, parent=parent,
+                 key=key, dev=None if d is None
+                 else (d[0] - t_base, d[1] - t_base))

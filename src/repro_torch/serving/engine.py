@@ -40,7 +40,19 @@ its own tensors only.
 The engine clock is wall time by default; passing ``step_time`` switches
 to a deterministic virtual clock (each decode step advances time by that
 amount) so tests can assert batch compositions and latency numbers
-exactly.
+exactly.  A request's arrival is its open-loop due time when it has one
+(``Request.arrival_s``; :meth:`run` keeps it, so lateness in releasing it
+counts), else the time it was submitted; it is admitted right before its
+own prefill, so ``queue_wait_s`` is submit to prefill start.
+
+A step under a torch profiler, or on a session built with ``trace=True``,
+records its spans (:mod:`repro_torch.obs.spans`): ``repro.engine.step``,
+and inside it, for each request it admits, ``repro.engine.admit`` (the
+admission's bookkeeping), ``repro.engine.queue`` (arrival to the start of
+its own prefill, wall clock only), ``repro.engine.prefill`` and
+``repro.engine.sample`` (each with its device interval on CUDA), all
+carrying the rid as their shared id, then ``repro.engine.decode`` around
+the lane-step run, and the counter ``repro.engine.admitted``.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from ..api.graph import Graph
 from ..core.taskgraph import Channel
+from ..obs import spans
 from .metrics import RequestRecord, ServingReport
 from .request import Request, RequestState
 
@@ -63,6 +76,11 @@ SampleFn = Callable[[Any], Any]                    # logits -> token
 #: warm-replay hit rate; warmup/record/rerecord are dynamic serves).
 #: ``compiled`` counts as warm: it is the promoted form of a warm replay.
 _WARM_MODES = ("replay", "adopt", "remap", "compiled")
+
+_STEP, _ADMIT, _QUEUE = ("repro.engine.step", "repro.engine.admit",
+                         "repro.engine.queue")
+_PREFILL, _SAMPLE, _DECODE = ("repro.engine.prefill", "repro.engine.sample",
+                              "repro.engine.decode")
 
 
 class AdmissionFull(RuntimeError):
@@ -164,6 +182,7 @@ class ContinuousBatchingEngine:
             from ..models.serving import greedy_sample
             sample_fn = greedy_sample
         self.session = session
+        self._traced = bool(getattr(session, "trace", False))
         self.max_batch = max_batch
         self.step_time = step_time
         self.procs = procs
@@ -196,6 +215,12 @@ class ContinuousBatchingEngine:
             return self._vnow
         return time.perf_counter() - self._t0
 
+    def _at(self, t: float) -> float:
+        """Engine time of the ``perf_counter`` reading ``t``."""
+        if self.step_time is not None:
+            return self._vnow
+        return t - self._t0
+
     def _reset_clock(self) -> None:
         self._vnow = 0.0
         self._t0 = time.perf_counter()
@@ -214,14 +239,21 @@ class ContinuousBatchingEngine:
 
     def submit(self, request: Request, *, block: bool = False,
                timeout: Optional[float] = None) -> None:
-        """Enqueue ``request`` for admission.  When the bounded queue is
-        full: raise :class:`AdmissionFull` (default), or with ``block``
+        """Enqueue ``request`` for admission; it arrives at its
+        ``arrival_s``, or now when that is None.  When the bounded queue
+        is full: raise :class:`AdmissionFull` (default), or with ``block``
         wait for a decode step to drain a slot — up to ``timeout`` seconds
         (forever when None).  Thread-safe."""
+        arrival = request.arrival_s
+        self._enqueue(request, self._now() if arrival is None else arrival,
+                      block, timeout)
+
+    def _enqueue(self, request: Request, arrival: float, block: bool,
+                 timeout: Optional[float]) -> None:
         if request.rid in self._records:
             raise ValueError(f"duplicate request id {request.rid}")
         self._records[request.rid] = RequestRecord(
-            rid=request.rid, arrival_s=request.arrival_s)
+            rid=request.rid, arrival_s=arrival)
         deadline = (None if timeout is None
                     else time.monotonic() + timeout)
         while not self._admission.try_send(request):
@@ -302,23 +334,39 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------------
     # the decode loop
-    def _admit(self, now: float) -> bool:
+    def _admit(self, sp: Optional[spans.Spans]) -> int:
         """Fill free lanes from the admission queue; prefill each admitted
-        request (its first token comes from the prefill logits).  Requests
-        whose budget is 1 token (or whose first token is EOS) complete
-        here without ever occupying a decode slot."""
-        admitted = False
+        request (its first token comes from the prefill logits), stamping
+        its admission right before its own prefill.  Requests whose budget
+        is 1 token (or whose first token is EOS) complete here without
+        ever occupying a decode slot.  Returns how many were admitted."""
+        admitted = 0
         while len(self._active) < self.max_batch:
+            if sp is not None:
+                t_admit = time.perf_counter()
             ok, req = self._admission.try_recv()
             if not ok:
                 break
-            admitted = True
-            rec = self._records[req.rid]
-            rec.admitted_s = now
+            admitted += 1
+            rid = req.rid
+            rec = self._records[rid]
+            t = time.perf_counter()
+            rec.admitted_s = self._at(t)
+            if sp is not None:
+                sp.span(_ADMIT, t_admit, t, key=rid)
+                if self.step_time is None:
+                    sp.span(_QUEUE, rec.arrival_s + self._t0, t, key=rid)
+                sid = sp.begin(_PREFILL, t)
             cache, logits = self._prefill_fn(req.prompt)
+            if sp is not None:
+                sp.end(sid, key=rid)
+                sid = sp.begin(_SAMPLE)
             st = RequestState(req, cache, self._sample_fn(logits))
             tid = st.note_token(st.tok)
-            t_first = self._now()
+            t = time.perf_counter()
+            if sp is not None:
+                sp.end(sid, t, key=rid)
+            t_first = self._at(t)
             rec.first_token_s = t_first
             rec.tokens.append(tid)
             rec.token_times_s.append(t_first)
@@ -327,17 +375,32 @@ class ContinuousBatchingEngine:
                 self._done += 1
             else:
                 self._active.append(st)
+        if sp is not None:
+            sp.count("repro.engine.admitted", admitted)
         return admitted
 
     def step(self) -> bool:
         """Admit arrivals into free lanes, then run one decode step over
         the in-flight set.  Returns False when there was nothing to do."""
-        admitted = self._admit(self._now())
+        sp = spans.open_call(_STEP, traced=self._traced)
+        if sp is None:
+            return self._step(None)
+        try:
+            return self._step(sp)
+        finally:
+            sp.close()
+
+    def _step(self, sp: Optional[spans.Spans]) -> bool:
+        admitted = self._admit(sp)
         if not self._active:
-            return admitted
+            return admitted > 0
         k = len(self._active)
         graph, key = self._graph_for(k)
+        if sp is not None:
+            sid = sp.begin(_DECODE)
         report = self.session.run(graph, key=key)
+        if sp is not None:
+            sp.end(sid)
         if self.step_time is not None:
             self._vnow += self.step_time
         now = self._now()
@@ -374,8 +437,9 @@ class ContinuousBatchingEngine:
         finished, and return the :class:`ServingReport`."""
         if self.procs is not None:
             return self._run_mp(requests, timeout=timeout)
-        pending: Deque[Request] = deque(
-            sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
+        pending: Deque[Tuple[float, Request]] = deque(sorted(
+            ((r.arrival_s or 0.0, r) for r in requests),
+            key=lambda dr: (dr[0], dr[1].rid)))
         self._reset_clock()
         t_limit = time.monotonic() + timeout
         while pending or len(self._admission) or self._active:
@@ -384,15 +448,18 @@ class ContinuousBatchingEngine:
                     f"serving loop exceeded {timeout}s with "
                     f"{len(pending)} pending / {self.in_flight()} in flight")
             now = self._now()
-            while pending and pending[0].arrival_s <= now:
-                if not self.try_submit(pending[0]):
+            while pending and pending[0][0] <= now:
+                try:
+                    # arrives when due: a late release still counts
+                    self._enqueue(pending[0][1], pending[0][0], False, None)
+                except AdmissionFull:
                     break                      # queue full: backpressure
                 pending.popleft()
             worked = self.step()
             if not worked and pending and not len(self._admission):
                 # idle gap before the next arrival: jump (virtual clock)
                 # or nap (wall clock) instead of spinning
-                nxt = pending[0].arrival_s
+                nxt = pending[0][0]
                 if self.step_time is not None:
                     self._vnow = max(self._vnow, nxt)
                 else:
@@ -441,7 +508,7 @@ class ContinuousBatchingEngine:
                 f"no live worker process accepted serve stream {sid}")
 
         shards: Dict[int, Deque[Request]] = {p: deque() for p in range(n)}
-        for req in sorted(requests, key=lambda r: (r.arrival_s, r.rid)):
+        for req in sorted(requests, key=lambda r: (r.arrival_s or 0.0, r.rid)):
             shards[req.rid % n].append(req)
         retries: Dict[int, Deque[Request]] = {p: deque() for p in range(n)}
         outstanding: Dict[int, int] = {p: 0 for p in range(n)}
@@ -481,7 +548,7 @@ class ContinuousBatchingEngine:
                 queue = retries[p] if retries[p] else shards[p]
                 while (queue and outstanding[p] < cap
                        and (queue is retries[p]
-                            or queue[0].arrival_s <= now)):
+                            or (queue[0].arrival_s or 0.0) <= now)):
                     req = queue.popleft()
                     fut = pool.request(
                         p, "serve_submit", {"stream": sid, "request": req})

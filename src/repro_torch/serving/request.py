@@ -53,15 +53,16 @@ class Request:
     path: an int array of token ids shaped ``(1, prompt_len)``).
     ``max_new_tokens`` counts *all* generated tokens, including the one the
     prefill's logits yield — a budget of 1 completes at admission without
-    ever occupying a decode slot.  ``arrival_s`` is the arrival offset from
-    the start of the workload; ``eos_token`` stops the request early when
-    the sampler draws it.
+    ever occupying a decode slot.  ``arrival_s`` is the open-loop due time,
+    an offset from the start of the workload; None (a request with no due
+    time) arrives when it is submitted.  ``eos_token`` stops the request
+    early when the sampler draws it.
     """
 
     rid: int
     prompt: Any
     max_new_tokens: int
-    arrival_s: float = 0.0
+    arrival_s: Optional[float] = None
     eos_token: Optional[int] = None
 
     def __post_init__(self) -> None:

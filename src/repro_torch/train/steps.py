@@ -24,6 +24,14 @@ next microbatch's forward and backward on the main stream; the main
 stream waits for the side stream before the optimizer.  On the CPU the
 join runs in line.
 
+A step under a torch profiler records its spans
+(:mod:`repro_torch.obs.spans`): ``repro.train.step``, and inside it
+``repro.train.grad`` (a microbatch's forward and backward),
+``repro.train.join`` (a bucket's join, its device interval on the join's
+own stream) and ``repro.train.update`` (AdamW), each with its device
+interval on CUDA, and the counters ``repro.train.microbatches`` and
+``repro.train.joins``.
+
 ``compress_grads`` is the reference's bf16 wire format: each bucket is
 rounded to bfloat16 before it joins, and all-reduced in bfloat16 (hybrid
 only, as in the reference).  The accumulated gradient is the mean over
@@ -42,12 +50,16 @@ import torch
 from ..models import lm
 from ..models.config import ModelConfig
 from ..models.layers import sharded
+from ..obs import spans
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..sharding import collectives as C
 from ..sharding.rules import axes_of
 
 __all__ = ["StepConfig", "make_decode_step", "make_eval_step",
            "make_prefill_step", "make_train_step"]
+
+_STEP, _GRAD, _JOIN, _UPDATE = ("repro.train.step", "repro.train.grad",
+                                "repro.train.join", "repro.train.update")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,15 +117,20 @@ class _Bucket:
 
 
 def _join(acc: Dict[str, torch.Tensor], bucket: _Bucket, compress: bool,
-          stream: Optional["torch.cuda.Stream"]) -> None:
+          stream: Optional["torch.cuda.Stream"],
+          sp: Optional[spans.Spans]) -> None:
     """``acc += wire(bucket)``, leaf by leaf (float32 accumulator).  With a
     side ``stream``, the wait for the bucket's all-reduce and the adds are
     issued there after the bucket is ready on the current stream, and the
-    bucket's memory is kept until they ran."""
+    bucket's memory is kept until they ran.  ``sp`` takes the join's span
+    on the stream the adds run on."""
     def add():
+        sid = sp.begin(_JOIN, stream=stream) if sp is not None else 0
         grads = bucket.ready()
         for n, g in grads.items():
             acc[n].add_(g.to(torch.bfloat16) if compress else g)
+        if sp is not None:
+            sp.end(sid, stream=stream)
         return grads
 
     if stream is None:
@@ -177,23 +194,49 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
     group = ctx.group(ctx.batch_axes) if names else None
     shares, norm_group = _norm_shares(cfg, ctx)
 
-    def update(params, grads, opt_state):
-        return adamw_update(opt_cfg, params, grads, opt_state, shares,
-                            norm_group)
+    def update(params, grads, opt_state, sp):
+        sid = sp.begin(_UPDATE) if sp is not None else 0
+        out = adamw_update(opt_cfg, params, grads, opt_state, shares,
+                           norm_group)
+        if sp is not None:
+            sp.end(sid)
+        return out
 
-    def single(params, opt_state, batch):
+    def grad(params, batch, sp):
+        sid = sp.begin(_GRAD) if sp is not None else 0
+        out = _value_and_grad(params, cfg, batch, step_cfg.remat, ctx)
+        if sp is not None:
+            sp.end(sid)
+        return out
+
+    def traced(body):
+        """``body`` with the step's span around it when spans are on."""
+        def step(params, opt_state, batch):
+            sp = spans.open_call(_STEP)
+            if sp is None:
+                return body(params, opt_state, batch, None)
+            try:
+                return body(params, opt_state, batch, sp)
+            finally:
+                sp.close()
+        return step
+
+    @traced
+    def single(params, opt_state, batch, sp):
         params.requires_grad_(True)
         batch = _on_device(batch, params.device)
-        loss, grads = _value_and_grad(params, cfg, batch, step_cfg.remat,
-                                      ctx)
+        loss, grads = grad(params, batch, sp)
         grads = _Bucket(grads, names, group, False, False).ready()
-        params, opt_state, info = update(params, grads, opt_state)
+        params, opt_state, info = update(params, grads, opt_state, sp)
+        if sp is not None:
+            sp.count("repro.train.microbatches", 1)
         return params, opt_state, {"loss": loss, **info}
 
     if micro == 1:
         return single
 
-    def accumulated(params, opt_state, batch):
+    @traced
+    def accumulated(params, opt_state, batch, sp):
         params.requires_grad_(True)
         dev = params.device
         batch = _on_device(batch, dev)
@@ -209,10 +252,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
         loss_sum = 0.0
         if step_cfg.overlap == "serial":
             for mb in mbs:
-                loss, g = _value_and_grad(params, cfg, mb, step_cfg.remat,
-                                          ctx)
+                loss, g = grad(params, mb, sp)
                 _join(acc, _Bucket(g, names, group, False, False), False,
-                      None)
+                      None, sp)
                 loss_sum = loss_sum + loss
                 del g
         else:
@@ -225,19 +267,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
             prev = None
             for mb in mbs:
                 if prev is not None:
-                    _join(acc, prev, step_cfg.compress_grads, stream)
-                loss, g = _value_and_grad(params, cfg, mb, step_cfg.remat,
-                                          ctx)
+                    _join(acc, prev, step_cfg.compress_grads, stream, sp)
+                loss, g = grad(params, mb, sp)
                 prev = _Bucket(g, names, group, step_cfg.compress_grads,
                                True)
                 loss_sum = loss_sum + loss
-            _join(acc, prev, step_cfg.compress_grads, stream)
+            _join(acc, prev, step_cfg.compress_grads, stream, sp)
             del prev
             if stream is not None:
                 torch.cuda.current_stream().wait_stream(stream)
         for a in acc.values():
             a.div_(micro)
-        params, opt_state, info = update(params, acc, opt_state)
+        params, opt_state, info = update(params, acc, opt_state, sp)
+        if sp is not None:
+            sp.count("repro.train.microbatches", micro)
+            sp.count("repro.train.joins", micro)
         return params, opt_state, {"loss": loss_sum / micro, **info}
 
     return accumulated

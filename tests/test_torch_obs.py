@@ -12,8 +12,10 @@ recorder's own tests (rings, the allocation-free off path) are in
 """
 
 import json
+from pathlib import Path
 
 import pytest
+import torch
 
 import repro
 import repro_torch
@@ -359,3 +361,293 @@ def test_serve_lm_trace_refuses_jit_and_procs(tmp_path, argv):
     with pytest.raises(SystemExit):
         serve_lm.main(["--reduced", "--device", "cpu", "--trace",
                        str(tmp_path / "t.json")] + argv)
+
+
+# ---------------------------------------------------------------------------
+# the program's spans (repro_torch.obs.spans): the compiled driver, the
+# train step and flash, the serving engine
+# ---------------------------------------------------------------------------
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chol_graph(seed=1, n=128, b=32):
+    from repro_torch.linalg import build_cholesky_graph, random_spd, to_tiles
+
+    store = to_tiles(random_spd(n, seed=seed, device="cpu"), b, device="cpu")
+    return build_cholesky_graph(n // b, b, store=store), store
+
+
+def _compiled_run(trace):
+    """A compiled Cholesky's second run (the first records); returns its
+    report and L."""
+    from repro_torch.linalg import cholesky_extract
+
+    with repro_torch.Session(2, scheduler="compiled", trace=trace) as s:
+        s.run(_chol_graph()[0])
+        g, store = _chol_graph()
+        report = s.run(g)
+    assert report.plan.mode == "compiled"
+    return report, cholesky_extract(store)
+
+
+def _train_step():
+    """A 1-layer qwen3-shaped train step in 2 hybrid microbatches; returns
+    a callable that runs one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import StepConfig, make_train_step
+
+    cfg = get_config("qwen3-14b").reduced(n_layers=1)
+    state = [init_params(cfg, 0, "cpu"), None]
+    state[1] = adamw_init(state[0])
+    step = make_train_step(cfg, AdamWConfig(), None, StepConfig(microbatches=2))
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+             for k in ("tokens", "labels")}
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+    return run
+
+
+def _engine_step(session=None):
+    """A 2-lane engine whose two queued one-token requests one step
+    serves; returns a callable that queues both and runs the step."""
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    def prefill(prompt):
+        return None, torch.tensor([[0.0, 1.0, 0.5]])
+
+    eng = ContinuousBatchingEngine(
+        session, lambda cache, tok: (cache, None), prefill, max_batch=2,
+        sample_fn=lambda logits: logits[0].argmax())
+    rids = iter(range(1_000_000))
+
+    def run():
+        for _ in range(2):
+            eng.submit(Request(rid=next(rids), prompt=None,
+                               max_new_tokens=1))
+        eng.step()
+    return run
+
+
+@pytest.mark.parametrize("call", ["compiled", "train", "engine"])
+def test_untraced_calls_record_and_allocate_nothing(call):
+    """With no profiler and tracing off, a compiled run, a train step and
+    an engine step open no span and allocate nothing in the recorder."""
+    import tracemalloc
+
+    from repro_torch.obs import recorder, spans
+
+    if call == "compiled":
+        run = lambda: _compiled_run(False)           # noqa: E731
+    elif call == "train":
+        run = _train_step()
+    else:
+        session = repro_torch.Session(1)
+        run = _engine_step(session)
+    run()                                            # warm
+    spans.reset()
+    files = [tracemalloc.Filter(True, spans.__file__),
+             tracemalloc.Filter(True, recorder.__file__)]
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot().filter_traces(files)
+        run()
+        after = tracemalloc.take_snapshot().filter_traces(files)
+    finally:
+        tracemalloc.stop()
+        if call == "engine":
+            session.close()
+    grown = [d for d in after.compare_to(before, "lineno") if d.size_diff > 0]
+    assert grown == []
+    assert spans.current() is None
+    assert spans.span_trace() is None
+
+
+def test_compiled_session_trace_holds_its_spans(tmp_path):
+    """A compiled run of a ``trace=True`` session returns a trace of its
+    ``repro.compiled.*`` spans that validates and round-trips, and its
+    factor is bit-identical to an untraced run's."""
+    report, L = _compiled_run(True)
+    untraced, L0 = _compiled_run(False)
+    assert untraced.trace is None
+    assert torch.equal(L, L0)
+    trace = report.trace
+    assert isinstance(trace, RuntimeTrace) and trace.dropped == 0
+    (run,) = [s for s in trace.spans if s.label == "repro.compiled.run"]
+    kids = [s for s in trace.spans if s.parent == run.sid]
+    assert {s.label for s in kids} <= {
+        "repro.compiled.bind", "repro.compiled.graph",
+        "repro.compiled.segment", "repro.compiled.task",
+        "repro.compiled.release"}
+    assert len(kids) == len(trace.spans) - 1
+    entries = [s for s in kids if s.label != "repro.compiled.bind"]
+    assert len(entries) == trace.counters["repro.compiled.entries"]
+    assert trace.counters["repro.compiled.skip_ahead"] == \
+        report.stats["skip_ahead"]
+    for a, b in zip(kids, kids[1:]):            # one after another
+        assert run.t0 <= a.t0 <= a.t1 <= b.t0 <= b.t1 <= run.t1
+    path = write_trace(trace, str(tmp_path / "compiled.json"))
+    assert validate_trace_json(path)["slices"] == len(trace.spans)
+    assert load_trace(path) == trace
+
+
+def _profiled_events(body):
+    import os
+    import tempfile
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("portbench.traced"):
+            body()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+
+
+def test_profiled_spans_nest_and_keep_the_benchmark_idle_names():
+    """Under torch.profiler every call's spans are nested
+    ``user_annotation`` events, named apart from the benchmark's spans,
+    and the benchmark's reduction of the trace names its idle gaps as it
+    does without them."""
+    import sys
+
+    from repro_torch.obs import spans
+
+    sys.path.insert(0, str(ROOT))
+    from portbench import harness
+
+    train, session = _train_step(), repro_torch.Session(1)
+    engine = _engine_step(session)
+    graph, _ = _chol_graph()
+    with repro_torch.Session(2, scheduler="compiled") as chol:
+        chol.run(graph)
+        plan = chol.plan(graph)
+
+        def body():
+            with torch.profiler.record_function("factor"):
+                chol.run(graph, plan=plan)
+            with torch.profiler.record_function("train.step"):
+                train()
+            with torch.profiler.record_function("engine.step"):
+                engine()
+        spans.reset()
+        events = _profiled_events(body)
+    session.close()
+    ours = [e for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith("repro.")]
+    names = {e["name"] for e in ours}
+    assert {"repro.compiled.run", "repro.compiled.bind",
+            "repro.train.step", "repro.train.grad", "repro.train.join",
+            "repro.train.update", "repro.engine.step",
+            "repro.engine.prefill", "repro.engine.sample"} <= names
+    # the compiled driver's entries and flash stay out of the profiler's
+    # trace (their cost under it, PERF.md §6); the recorder has them
+    assert not names & {"repro.compiled.segment", "repro.compiled.task",
+                        "repro.flash.fwd", "repro.flash.bwd"}
+    assert not names & (set(harness.SPAN_NAMES) | {"portbench.traced"})
+
+    def inside(name, outer):
+        kids = [e for e in ours if e["name"] == name]
+        outs = [e for e in ours if e["name"] == outer]
+        assert kids and all(any(
+            o["ts"] <= k["ts"] and k["ts"] + k["dur"] <= o["ts"] + o["dur"]
+            for o in outs) for k in kids), (name, outer)
+    inside("repro.compiled.bind", "repro.compiled.run")
+    inside("repro.train.grad", "repro.train.step")
+    inside("repro.train.update", "repro.train.step")
+    inside("repro.engine.prefill", "repro.engine.step")
+    tr = spans.span_trace()
+    assert tr.dropped == 0
+    assert {s.label for s in tr.spans} >= names | {
+        "repro.compiled.task", "repro.flash.fwd", "repro.flash.bwd"}
+    by_id = {s.sid: s for s in tr.spans}
+    for s in tr.spans:       # each child inside its parent, but a wait
+        if s.parent in by_id and s.label != "repro.engine.queue":
+            p = by_id[s.parent]
+            assert p.t0 <= s.t0 <= s.t1 <= p.t1, (s.label, p.label)
+    flash = [s for s in tr.spans if s.label.startswith("repro.flash.")]
+    assert flash and all(by_id[s.parent].label == "repro.train.grad"
+                         for s in flash)
+
+    # device operations (the CPU run has none) spread over the window, so
+    # gaps fall inside and between the program's spans
+    window = next(e for e in events if e["name"] == "portbench.traced")
+    t0, dur = float(window["ts"]), float(window["dur"])
+    ops = [{"ph": "X", "cat": "kernel", "name": f"k{i}",
+            "ts": t0 + dur * i / 40, "dur": dur / 120} for i in range(40)]
+    with_ours = harness.reduce_trace(events + ops)
+    without = harness.reduce_trace(
+        [e for e in events if e not in ours] + ops)
+    assert with_ours.idle_by_span == without.idle_by_span
+    assert set(with_ours.idle_by_span) >= {"factor", "train.step"}
+
+
+#: the five readers' spans: (name, parent, host t0, t1, device t0, t1)
+_SYNTHETIC = [
+    ("repro.compiled.run", None, 0.0, 10.0, 0.0, 12.0),
+    ("repro.compiled.bind", "repro.compiled.run", 0.0, 1.0, 0.5, 1.5),
+    ("repro.compiled.graph", "repro.compiled.run", 2.0, 4.0, 2.5, 6.0),
+    ("repro.compiled.task", "repro.compiled.run", 5.0, 8.0, 6.0, 9.0),
+    ("repro.compiled.release", "repro.compiled.run", 9.0, 9.5, 9.5, 11.0),
+    ("repro.train.step", None, 20.0, 30.0, 20.0, 33.0),
+    ("repro.train.grad", "repro.train.step", 20.5, 25.0, 21.0, 27.0),
+    ("repro.flash.fwd", "repro.train.grad", 21.0, 21.5, 21.5, 22.5),
+    ("repro.flash.bwd", "repro.train.grad", 23.0, 24.0, 24.0, 26.0),
+    ("repro.train.update", "repro.train.step", 26.0, 29.0, 27.0, 32.0),
+    ("repro.engine.step", None, 40.0, 50.0, 40.0, 52.0),
+    ("repro.engine.prefill", "repro.engine.step", 41.0, 44.0, 41.5, 47.0),
+    ("repro.engine.sample", "repro.engine.step", 44.0, 45.0, 47.5, 48.0),
+    ("repro.engine.prefill", "repro.engine.step", 46.0, 47.0, 48.0, 50.0),
+    ("repro.engine.sample", "repro.engine.step", 47.0, 48.0, 50.5, 51.0),
+]
+
+
+@pytest.mark.parametrize("metric, expected", [
+    # gaps 1.5 -> 2.5, 6 -> 6, 9 -> 9.5: 1.5 ms in one run
+    ("entry_gap_ms.chol", 1.5e3),
+    # 10 - (1 + 2 + 3 + 0.5)
+    ("driver_self_ms.chol", 3.5e3),
+    ("update_ms.train", 5.0e3),
+    ("flash_ms.train", 3.0e3),
+    # 40 -> 41.5, 47 -> 47.5, 48 -> 48, 50 -> 50.5, 51 -> 52
+    ("step_gap_ms.score", 3.5e3),
+])
+@pytest.mark.parametrize("dropped", [False, True])
+def test_span_readers_on_synthetic_spans(monkeypatch, metric, expected,
+                                         dropped):
+    """Each per-layer metric that reads the program's spans gives its
+    number on known spans (seconds here, so ms read ×1e3), and None when
+    the recorder dropped events."""
+    import importlib.util
+
+    from repro_torch.obs import spans
+
+    w = spans._Window()
+    if dropped:
+        w.rec = repro_torch.obs.FlightRecorder(0, 8, owned=False)
+    monkeypatch.setattr(spans, "_window", w)
+    devices, sids = {}, {}
+    sp = spans.Spans(w, False, None, outer=False)
+    for name, parent, t0, t1, d0, d1 in _SYNTHETIC:
+        w.open[:] = [sids[parent]] if parent else []
+        sids[name] = sid = sp.begin(name, t0)
+        sp.end(sid, t1)
+        devices[sid] = (d0, d1)
+    monkeypatch.setattr(spans, "_devices", lambda _w: devices)
+    path = ROOT / "portbench" / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"reader_{id(path)}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = mod.read(None)
+    if dropped:
+        assert got is None
+    else:
+        assert got == pytest.approx(expected)

@@ -33,7 +33,7 @@ from repro_torch.models import (DecodeShard, DecodeState, build_decode_graph,
                                 prefill, shard_batch)
 from repro_torch.replay import graph_key
 from repro_torch.serving import (AdmissionFull, ContinuousBatchingEngine,
-                                 PoissonWorkload)
+                                 PoissonWorkload, Request)
 from repro_torch.serving.request import token_id
 from repro_torch.serving.workload import constant_prompt_requests
 from test_torch_models import reference_tree
@@ -429,3 +429,36 @@ def test_decode_graph_matches_the_plain_loop(lm_pair):
     assert graph_tokens.shape == (4, steps)
     assert torch.equal(graph_tokens, torch.cat(loop, 0))
     assert launch_counts()["decode_attention"] == 0     # CPU: plain versions
+
+
+def test_queue_wait_runs_from_submit_to_the_requests_own_prefill():
+    """On the wall clock a request submitted without a due time arrives
+    when submitted and is admitted right before its own prefill, so in a
+    2-lane step the second request waits at least the first's prefill, and
+    ``queue_wait_s`` is submit to prefill start as a caller stamps it."""
+    import time
+
+    started, submitted = {}, {}
+
+    def prefill(prompt):
+        started[int(prompt[0])] = time.perf_counter()
+        time.sleep(0.02)
+        return toy_prefill(prompt)
+
+    with repro_torch.Session(1) as s:
+        eng = ContinuousBatchingEngine(s, toy_decode, prefill, max_batch=2,
+                                       sample_fn=toy_sample)
+        time.sleep(0.01)
+        for rid in (0, 1):
+            submitted[rid] = time.perf_counter()
+            eng.submit(Request(rid=rid, prompt=np.asarray([rid, 5]),
+                               max_new_tokens=1))
+        eng.step()
+        recs = eng.report().records
+    assert recs[0].arrival_s >= 0.01          # its submit, not 0.0
+    first_prefill = recs[0].first_token_s - recs[0].admitted_s
+    assert first_prefill >= 0.02
+    assert recs[1].queue_wait_s >= first_prefill
+    for rid in (0, 1):
+        outside = started[rid] - submitted[rid]
+        assert 0.0 <= outside - recs[rid].queue_wait_s < 2e-3
