@@ -243,13 +243,16 @@ QR_R_TOL = 1e-8
 #: the gang regions of the LU and QR panels (ULTs per region)
 PANEL_THREADS = 4
 WORKERS = 4
-KERNELS = ("tile_matmul", "flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("tile_matmul", "flash_attention", "decode_attention", "ssd_scan",
+           "adamw")
 CSRC = "src/repro_torch/kernels/csrc"
 #: the Pallas entry each kernel replaces (file:line of its function)
 REPLACES = {"tile_matmul": "src/repro/kernels/tile_matmul.py:35",
             "flash_attention": "src/repro/kernels/flash_attention.py:76",
             "decode_attention": "src/repro/kernels/decode_attention.py:59",
-            "ssd_scan": "src/repro/kernels/ssd_scan.py:78"}
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:78",
+            "adamw": "none: the reference's update is jnp ops "
+                     "(src/repro/optim/adamw.py)"}
 #: the attention kernels against their plain versions.  The plain versions
 #: keep p in float32 as the Pallas kernels do.  float32: both kernels keep p
 #: in float32 too, and meet tests/test_kernels.py's kernel tolerance.
@@ -1049,7 +1052,7 @@ def expected_launches(cfg, prefills: int, lane_steps: int):
     return {"tile_matmul": 0,
             "flash_attention": (attn + cross + enc) * prefills,
             "decode_attention": (attn + cross) * lane_steps,
-            "ssd_scan": ssm * prefills}
+            "ssd_scan": ssm * prefills, "adamw": 0}
 
 
 def memory_batch(cfg, n: int, seed: int = 2) -> dict:
@@ -1829,7 +1832,8 @@ def ssm_decode_matches_forward_phase(smi) -> None:
                "card": smi}
         emit(row)
         want = {"tile_matmul": 0, "flash_attention": 2 * uses,
-                "decode_attention": uses, "ssd_scan": 2 * layers}
+                "decode_attention": uses, "ssd_scan": 2 * layers,
+                "adamw": 0}
         check(counts == want, f"{arch}: launches {counts}, expected {want}")
         check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
               f"{arch}: a logit is not finite")
@@ -1969,11 +1973,13 @@ def leaf_grad_norms(model, cfg, batch, top: int = 8) -> list:
     return rows[:top] + [["total", sum(sq.values()) ** 0.5]]
 
 
-def train_launches(cfg) -> dict:
+def train_launches(cfg, leaves: int) -> dict:
     """Each kernel's launches in one train step of ``cfg``: every layer's
     SSM block (ssm, hybrid) launches the scan and every attention layer, or
     use of a hybrid's shared block, launches flash attention, once per
-    microbatch in the forward and once in its remat recompute."""
+    microbatch in the forward and once in its remat recompute; AdamW
+    launches its norm pass and its update once for each of the ``leaves``
+    and adds the norms' partials once."""
     from repro_torch.models.lm import layer_flags
 
     if cfg.family in ("ssm", "hybrid"):
@@ -1982,7 +1988,8 @@ def train_launches(cfg) -> dict:
     else:
         scan, attn = 0, cfg.n_layers
     return {"tile_matmul": 0, "flash_attention": attn * TRAIN_MICRO * 2,
-            "decode_attention": 0, "ssd_scan": scan * TRAIN_MICRO * 2}
+            "decode_attention": 0, "ssd_scan": scan * TRAIN_MICRO * 2,
+            "adamw": 2 * leaves + 1}
 
 
 def train_model_flops(cfg, n_params: int, emb: int):
@@ -2014,6 +2021,79 @@ def train_model_flops(cfg, n_params: int, emb: int):
     return flops, scan
 
 
+def adamw_step_case(model, opt, opt_cfg, step, batch, arch: str) -> dict:
+    """The AdamW kernel against its plain version on a train step's own
+    gradients: one more ``step`` at ``batch`` hands its accumulated
+    float32 gradients to ``adamw_update``, which updates as usual, and a
+    copy of them is kept.  Then from that tree and state, leaf by leaf,
+    with the plain version's clip scale and the next step's lr and bias
+    corrections, the kernel updates copies of p, m and v from the
+    unclipped gradient and the plain version (the clip, then the chunked
+    torch ops) the originals.  p, m and v must have the same bits, the
+    kernel's norm pass must agree with the plain sum to 1e-6 relative,
+    every leaf must be the kernel's, and the update must move p and m."""
+    from repro_torch.kernels import adamw as K
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import steps as S
+
+    kept = {}
+
+    def keep(cfg_, params, grads, state, shares=None, group=None):
+        kept.update({n: g.clone() for n, g in grads.items()})
+        return A.adamw_update(cfg_, params, grads, state, shares, group)
+
+    S.adamw_update = keep
+    try:
+        model, opt, _ = step(model, opt, batch)
+    finally:
+        S.adamw_update = A.adamw_update
+    named = list(model.named_parameters())
+    ms, vs = opt["m"], opt["v"]
+    check(all(K.takes(p, kept[n], ms[n], vs[n]) for n, p in named),
+          f"{arch}: a leaf of the train step is not the AdamW kernel's")
+    b1, b2 = opt_cfg.b1, opt_cfg.b2
+    with torch.no_grad():
+        plain_sq = A._squares(kept.items(), None)
+        kernel_sq = K.sum_squares([kept[n] for n, _ in named],
+                                  [1.0] * len(named))
+        gn, scale = A._clip_scale(plain_sq, opt_cfg.clip_norm, None)
+        nxt = opt["step"] + 1
+        lr = A.lr_schedule(opt_cfg, nxt)
+        bc1, bc2 = 1 - b1 ** nxt.float(), 1 - b2 ** nxt.float()
+        worst, differ, p_moved, m_moved, n_all = 0.0, 0, 0, 0, 0
+        for n, p in named:
+            g, m, v = kept[n], ms[n], vs[n]
+            fp, fm, fv = p.detach().clone(), m.clone(), v.clone()
+            K.update(fp, g, fm, fv, scale, lr, bc1, bc2, b1, b2,
+                     opt_cfg.eps, opt_cfg.weight_decay)
+            p_moved += int(fp.ne(p).sum().item())
+            m_moved += int(fm.ne(m).sum().item())
+            A._clip_(g, scale)
+            A._plain_leaf(opt_cfg, p.detach(), g, m, v, lr, bc1, bc2)
+            for a, b in ((fp, p.detach()), (fm, m), (fv, v)):
+                differ += int(a.ne(b).sum().item())
+                worst = max(worst, (a.float() - b.float()).abs().max()
+                            .item())
+            del fp, fm, fv
+            kept[n] = None
+            n_all += p.numel()
+    del kept
+    plain_norm, kernel_norm = float(plain_sq) ** 0.5, float(kernel_sq) ** 0.5
+    check(differ == 0, f"{arch}: the AdamW kernel against its plain version "
+          f"on the step's gradients: {differ} elements of p, m and v differ, "
+          f"by up to {worst}")
+    check(abs(kernel_norm - plain_norm) <= 1e-6 * plain_norm,
+          f"{arch}: the AdamW norm pass reads {kernel_norm}, the plain sum "
+          f"{plain_norm}")
+    check(plain_norm > 0 and p_moved > 0 and m_moved > 0,
+          f"{arch}: the compared update moved nothing (gradient norm "
+          f"{plain_norm}; p moved in {p_moved}, m in {m_moved} of {n_all})")
+    return {"leaves": len(named), "params": n_all, "grad_norm": plain_norm,
+            "kernel_grad_norm": kernel_norm, "scale": float(scale),
+            "p_moved": p_moved, "m_moved": m_moved,
+            "elements_differ": differ, "max_abs_err": worst}
+
+
 def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
                      phase: str = "train_step") -> dict:
     """``make_train_step`` on ``arch`` at full width cut to ``layers``
@@ -2026,14 +2106,18 @@ def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
     launches per step exact
     (:func:`train_launches`); one ``serial`` step from the same start
     against hybrid's first; step ms, tokens/s, ``train_mfu``, peak memory,
-    AdamW ms and one profiled step's device busy share."""
+    AdamW ms through the kernel and through its plain version (the chunked
+    torch ops) on the same tree, the kernel's GB/s, the kernel against
+    its plain version on a step's own gradients (:func:`adamw_step_case`),
+    and one profiled step's device busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   adamw_update_ref)
     from repro_torch.train import StepConfig, make_eval_step, make_train_step
 
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -2115,7 +2199,7 @@ def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
         trained)
     norms_after = leaf_grad_norms(model, cfg, micro0)
     del trained
-    want = train_launches(cfg)
+    want = train_launches(cfg, len(list(model.parameters())))
     for i, c in enumerate(launches):
         check(c == want, f"{arch} train step {i + 1}: launches {c}, expected "
               f"{want} (layers or uses x microbatches x forward and remat)")
@@ -2152,11 +2236,22 @@ def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
     device_s = sum(r[0] for r in rows) / 1e6
     check(device_s > 0, "the profiled train step shows no device work")
 
-    # AdamW alone, on float32 gradients of the accumulated step's layout
+    # AdamW: the kernel against its plain version on the step's own
+    # gradients, then alone, on float32 gradients of the accumulated step's
+    # layout: the kernel, and beside it the plain version (the chunked
+    # torch ops, a yardstick the step no longer runs on the card) on the
+    # same tree; the kernel's bytes: p read and written, g read by the norm
+    # and the update, m and v read and written
+    adamw_case = adamw_step_case(model, opt, opt_cfg, step,
+                                 data.batch_at(TRAIN_STEPS + 1), arch)
     grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=TRAIN_DEVICE)
              for n, p in model.named_parameters()}
     adamw_ms = device_ms(lambda: adamw_update(opt_cfg, model, grads, opt),
                          reps=3)
+    adamw_plain_ms = device_ms(
+        lambda: adamw_update_ref(opt_cfg, model, grads, opt), reps=3)
+    adamw_bytes = sum(p.numel() * (2 * p.element_size() + 2 * 4 + 16)
+                      for p in model.parameters())
     del grads
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2193,7 +2288,14 @@ def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
            "flash_launches_per_step": launches[0]["flash_attention"],
            "flash_launches": sum(c["flash_attention"] for c in launches),
            "scan_launches": sum(c["ssd_scan"] for c in launches),
-           "adamw_ms": adamw_ms, "floor_products_ms": floor_products_ms,
+           "adamw_launches": sum(c["adamw"] for c in launches),
+           "adamw": {**adamw_case, "ms": adamw_ms, "plain_ms": adamw_plain_ms,
+                     "library_ms": None,
+                     "bound_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "memory", "bytes": adamw_bytes},
+           "adamw_ms": adamw_ms, "adamw_plain_ms": adamw_plain_ms,
+           "adamw_gb_s": adamw_bytes / adamw_ms / 1e6,
+           "floor_products_ms": floor_products_ms,
            "floor_optimizer_ms": floor_opt_ms,
            "serial_vs_hybrid": {"serial": serial_metrics,
                                 "hybrid": hybrid_metrics,
@@ -2218,7 +2320,7 @@ def trainer_phase(smi) -> dict:
     ``request_preemption()`` at step 25 checkpoints and stops; a new
     ``Trainer`` restores at 25, reads the stream from step 25 (each batch
     equal to an uninterrupted stream's) and finishes at 40; the loss falls.
-    Checkpoint bytes and save seconds; flash launches exact."""
+    Checkpoint bytes and save seconds; flash and AdamW launches exact."""
     import hashlib
     import shutil
     import tempfile
@@ -2287,6 +2389,7 @@ def trainer_phase(smi) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()["flash_attention"]
+        adamw_launches = launch_counts()["adamw"]
         step_dir = os.path.join(ckpt_dir, f"step_{TRAINER_STEPS:08d}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
                          for f in os.listdir(step_dir))
@@ -2302,6 +2405,11 @@ def trainer_phase(smi) -> dict:
     want_launches = cfg.n_layers * 2 * 2 * TRAINER_STEPS
     check(launches == want_launches, f"trainer: {launches} flash launches, "
           f"expected {want_launches}")
+    # every step's update through the AdamW kernel (float32 leaves)
+    leaves = len(list(out["params"].parameters()))
+    want_adamw = (2 * leaves + 1) * TRAINER_STEPS
+    check(adamw_launches == want_adamw, f"trainer: {adamw_launches} adamw "
+          f"launches, expected {want_adamw}")
     losses = [m["loss"] for m in first["metrics"] + out["metrics"]]
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"the trainer's loss did not fall: "
@@ -2318,7 +2426,8 @@ def trainer_phase(smi) -> dict:
            "losses": [(m["step"], m["loss"]) for m in
                       first["metrics"] + out["metrics"]],
            "held_out_loss": [held_before, held_after], "opt": TRAINER_OPT,
-           "flash_launches": launches, "checkpoint_bytes": ckpt_bytes,
+           "flash_launches": launches, "adamw_launches": adamw_launches,
+           "checkpoint_bytes": ckpt_bytes,
            "saves": saves, "wall_s": wall, "card": smi}
     emit(row)
     return row
@@ -3562,7 +3671,7 @@ def sharded_serve_phase(cfg, model, smi) -> dict:
         0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to("cuda")
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": cfg.n_layers * steps, "tile_matmul": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "adamw": 0}
     toks0, logits0, _, s0 = _greedy(model, cfg, prompts, None, steps)
     rows = {}
     with nccl_world_of_one():
@@ -3710,7 +3819,7 @@ def sharded_train_step_phase(smi, train_row: dict) -> dict:
             colls.append(C.counts())
             losses.append(float(m["loss"]))
         peak = torch.cuda.max_memory_allocated()
-        want = train_launches(cfg)
+        want = train_launches(cfg, len(list(local.parameters())))
         check(all(c == want for c in launches), f"sharded train step "
               f"launches {launches[0]}, expected {want}")
         check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -3736,6 +3845,7 @@ def sharded_train_step_phase(smi, train_row: dict) -> dict:
            "ctx_none_median_step_ms": train_row["median_step_ms"],
            "flash_launches_per_step": launches[0]["flash_attention"],
            "flash_launches": sum(c["flash_attention"] for c in launches),
+           "adamw_launches": sum(c["adamw"] for c in launches),
            "collectives_per_step": colls[0]["total_count"],
            "collective_bytes_per_step": colls[0]["total_bytes"],
            "nccl_kernels_per_step": nccl,
@@ -4312,8 +4422,21 @@ def main() -> int:
     scan["train_pair"] = {k: ssd_train[k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "forward_ms", "max_abs_err")}
+    # AdamW: every train step's update (qwen3-14b, the SSM models, the
+    # sharded step on a mesh of one rank) and the trainer's; the case is
+    # the kernel against its plain version on qwen3-14b's step gradients
+    adamw_by_path = {"train_step": train_row["adamw_launches"],
+                     **{f"train_step_{arch}": r["adamw_launches"]
+                        for arch, r in ssm_rows.items()},
+                     "sharded_train_step": sharded_train["adamw_launches"],
+                     "trainer": trainer_row["adamw_launches"]}
+    adamw = line("adamw", train_row["adamw"], sum(adamw_by_path.values()))
+    adamw["launches_by_path"] = adamw_by_path
+    adamw["step_gradients"] = {k: train_row["adamw"][k] for k in (
+        "leaves", "params", "grad_norm", "kernel_grad_norm", "scale",
+        "elements_differ")}
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [gemm, flash, decode, scan]})
+    emit({"kernels": [gemm, flash, decode, scan, adamw]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

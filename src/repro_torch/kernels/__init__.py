@@ -15,6 +15,9 @@ their launch counts.
 * :mod:`~repro_torch.kernels.ssd_scan` — the Mamba2 SSD chunk scan of an
   SSM layer's prefill, scoring and training (``csrc/ssd_scan.cu``; its
   gradient through ``SSDScanFn``);
+* :mod:`~repro_torch.kernels.adamw` — the optimizer's norm pass and fused
+  clip-and-update pass (``csrc/adamw.cu``; its plain version is
+  ``optim/adamw.py``'s chunked torch ops);
 * :mod:`~repro_torch.kernels.ref` — the plain versions;
 * :func:`launch_counts` / :func:`reset_launch_counts` — every kernel's
   launch count, for showing that a run went through the kernels.
@@ -23,6 +26,7 @@ their launch counts.
 from typing import Dict
 
 from . import ops, ref
+from .adamw import launches as _adamw_launches
 from .decode_attention import launches as _decode_attention_launches
 from .flash_attention import launches as _flash_attention_launches
 from .ssd_scan import launches as _ssd_scan_launches
@@ -32,7 +36,8 @@ from .tile_matmul import launches as _tile_matmul_launches
 COUNTERS = {c.name: c for c in (_tile_matmul_launches,
                                 _flash_attention_launches,
                                 _decode_attention_launches,
-                                _ssd_scan_launches)}
+                                _ssd_scan_launches,
+                                _adamw_launches)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,6 +15,13 @@ Unlike the reference, which returns new trees, the update works in place
 and in chunks of :data:`CHUNK` elements, so no temporary is larger than a
 chunk: written leaf by leaf, a 778.6 M-element embedding would make
 several 3.1 GB float32 temporaries.
+
+On the card those chunks are the kernel's plain version: a leaf the
+hand-written ``kernels/csrc/adamw.cu`` takes is updated there in two
+passes that keep every temporary in registers (the gradient read once
+for the norm, then p, g, m and v read once and p, m and v written once),
+with the same float32 operations in the same order, so p, m and v come
+out bit for bit as the chunks make them from the same clip scale.
 """
 
 from __future__ import annotations
@@ -26,8 +33,11 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
+from ..kernels import adamw as adamw_kernel
+from ..obs import spans
+
 __all__ = ["AdamWConfig", "CHUNK", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "lr_schedule"]
+           "adamw_update_ref", "clip_by_global_norm", "lr_schedule"]
 
 #: elements per chunk of the in-place update (a 128 MB float32 temporary)
 CHUNK = 1 << 25
@@ -73,11 +83,41 @@ def adamw_init(params: nn.Module) -> Dict[str, object]:
 
 
 def _chunks(*tensors: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
-    """Views of :data:`CHUNK` consecutive elements of each (contiguous)
-    tensor, side by side."""
+    """Views of :data:`CHUNK` consecutive elements of each tensor, side by
+    side; the tensors whole, in one piece, when any of them is not
+    contiguous (it has no flat view)."""
+    if not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
     flat = [t.view(-1) for t in tensors]
     for i in range(0, flat[0].numel(), CHUNK):
         yield tuple(f[i:i + CHUNK] for f in flat)
+
+
+def _squares(grads, shares):
+    """The float32 sum of the ``(name, gradient)`` pairs' squared sums,
+    each weighted by ``shares[name]`` (1 by default), chunk by chunk;
+    None for no pair."""
+    sq = None
+    for name, g in grads:
+        w = shares.get(name, 1.0) if shares else 1.0
+        for (c,) in _chunks(g):
+            part = c.float().square().sum()
+            if w != 1.0:
+                part = part * w
+            sq = part if sq is None else sq + part
+    return sq
+
+
+def _clip_scale(sq: torch.Tensor, max_norm: float, group):
+    """``(norm, scale)`` of the summed squares ``sq`` (added over
+    ``group`` first, in place): ``scale = min(1, max_norm / max(norm,
+    1e-12))``, both float32 device scalars."""
+    if group is not None:
+        from ..sharding import collectives
+        collectives.all_reduce_(sq, group)
+    gn = torch.sqrt(sq)
+    return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
@@ -93,52 +133,114 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
     holding the same shard), and the weighted sum is added over ``group``
     (every rank of the mesh)."""
     with torch.no_grad():
-        sq = None
-        for name, g in grads.items():
-            w = shares.get(name, 1.0) if shares else 1.0
-            for (c,) in _chunks(g):
-                part = c.float().square().sum()
-                if w != 1.0:
-                    part = part * w
-                sq = part if sq is None else sq + part
-        if group is not None:
-            from ..sharding import collectives
-            collectives.all_reduce_(sq, group)
-        gn = torch.sqrt(sq)
-        scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+        gn, scale = _clip_scale(_squares(grads.items(), shares), max_norm,
+                                group)
         for g in grads.values():
-            # a bfloat16 product is taken in float32 and rounded once:
-            # the reference's (g.astype(f32) * scale).astype(g.dtype)
-            g.mul_(scale)
+            _clip_(g, scale)
     return grads, gn
+
+
+def _clip_(g: torch.Tensor, scale: torch.Tensor) -> None:
+    """``g *= scale`` in place, rounded once to ``g``'s type.  A gradient
+    narrower than float32 is multiplied in float32, chunk by chunk: the
+    reference's ``(g.astype(f32) * scale).astype(g.dtype)``.  (Torch's
+    ``mul_`` of a bfloat16 CUDA tensor by a float32 device scalar rounds
+    the scalar to bfloat16 first.)"""
+    if g.element_size() >= 4:
+        g.mul_(scale)
+        return
+    for (c,) in _chunks(g):
+        c.copy_(c.float() * scale)
+
+
+def _plain_leaf(cfg: AdamWConfig, p, g, m, v, lr, bc1, bc2) -> None:
+    """One leaf's update from its clipped gradient in torch ops, chunk by
+    chunk: the kernel's plain version."""
+    b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
+    for pc, gc, mc, vc in _chunks(p, g, m, v):
+        g32 = gc.float()
+        mc.mul_(b1).add_((1 - b1) * g32)
+        vc.mul_(b2).add_((1 - b2) * g32 * g32)
+        del g32
+        p32 = pc.float()
+        delta = (mc / bc1) / (torch.sqrt(vc / bc2) + eps)
+        delta += wd * p32
+        pc.copy_(p32 - lr * delta)
+
+
+def _update(cfg, params, grads, state, shares, group, fused_ok):
+    """:func:`adamw_update`, the leaves for which ``fused_ok(p, g, m, v)``
+    holds through the kernel and the rest through :func:`_plain_leaf`."""
+    named = list(params.named_parameters())
+    ms, vs = state["m"], state["v"]
+    fused = [n for n, p in named if fused_ok(p, grads[n], ms[n], vs[n])]
+    kernel_leaves = set(fused)
+    plain = [(n, g) for n, g in grads.items() if n not in kernel_leaves]
+    with torch.no_grad():
+        sq = _squares(plain, shares)
+        if fused:
+            part = adamw_kernel.sum_squares(
+                [grads[n] for n in fused],
+                [shares.get(n, 1.0) if shares else 1.0 for n in fused])
+            sq = part if sq is None else part + sq
+        gnorm, scale = _clip_scale(sq, cfg.clip_norm, group)
+        for _, g in plain:
+            _clip_(g, scale)
+    step = state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    stepf = step.float()
+    bc1 = 1 - cfg.b1 ** stepf
+    bc2 = 1 - cfg.b2 ** stepf
+    counts = {"fused": 0, "plain": 0}
+    with torch.no_grad():
+        for name, p in named:
+            g, m, v = grads[name], ms[name], vs[name]
+            if name in kernel_leaves:
+                adamw_kernel.update(p, g, m, v, scale, lr, bc1, bc2, cfg.b1,
+                                    cfg.b2, cfg.eps, cfg.weight_decay)
+                counts["fused"] += p.numel()
+            else:
+                _plain_leaf(cfg, p, g, m, v, lr, bc1, bc2)
+                counts["plain"] += p.numel()
+    sp = spans.current()
+    if sp is not None:
+        for kind, n in counts.items():
+            sp.count(f"repro.optim.{kind}_params", n)
+    state = {"m": ms, "v": vs, "step": step}
+    return params, state, {"lr": lr, "grad_norm": gnorm}
 
 
 def adamw_update(cfg: AdamWConfig, params: nn.Module,
                  grads: Dict[str, torch.Tensor], state: Dict[str, object],
                  shares: Optional[Dict[str, float]] = None, group=None):
-    """One AdamW step: clips ``grads`` (in place; ``shares`` and ``group``
-    as :func:`clip_by_global_norm` takes them, for sharded leaves), then
+    """One AdamW step: clips ``grads`` (``shares`` and ``group`` as
+    :func:`clip_by_global_norm` takes them, for sharded leaves), then
     updates every parameter of ``params`` and the state's ``m`` and ``v``
     **in place**.  Returns ``(params, state, {"lr", "grad_norm"})`` with
-    ``state["step"]`` advanced, the reference's return."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shares, group)
-    step = state["step"] + 1
-    lr = lr_schedule(cfg, step)
-    b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
-    stepf = step.float()
-    bc1 = 1 - b1 ** stepf
-    bc2 = 1 - b2 ** stepf
-    with torch.no_grad():
-        for name, p in params.named_parameters():
-            for pc, gc, mc, vc in _chunks(p, grads[name], state["m"][name],
-                                          state["v"][name]):
-                g32 = gc.float()
-                mc.mul_(b1).add_((1 - b1) * g32)
-                vc.mul_(b2).add_((1 - b2) * g32 * g32)
-                del g32
-                p32 = pc.float()
-                delta = (mc / bc1) / (torch.sqrt(vc / bc2) + eps)
-                delta += wd * p32
-                pc.copy_(p32 - lr * delta)
-    state = {"m": state["m"], "v": state["v"], "step": step}
-    return params, state, {"lr": lr, "grad_norm": gnorm}
+    ``state["step"]`` advanced, the reference's return.
+
+    The path is chosen leaf by leaf from what the leaf is.  A leaf the
+    kernel takes (:func:`repro_torch.kernels.adamw.takes`: on CUDA,
+    contiguous, a bfloat16 or float32 parameter and gradient, float32
+    ``m`` and ``v``) goes through ``csrc/adamw.cu``, a norm pass and one
+    fused clip-and-update pass; its gradient is read and **left
+    unclipped**, as the train step throws it away.  Every other leaf
+    (on the CPU, float64, float16, or with a tensor that is not
+    contiguous) goes through the chunked torch ops, its gradient clipped
+    in place; a leaf that is not contiguous is updated whole, in one
+    piece.  Inside
+    an open span call (:func:`repro_torch.obs.spans.current`) it counts
+    each path's elements, ``repro.optim.fused_params`` and
+    ``repro.optim.plain_params``."""
+    return _update(cfg, params, grads, state, shares, group,
+                   adamw_kernel.takes)
+
+
+def adamw_update_ref(cfg: AdamWConfig, params: nn.Module,
+                     grads: Dict[str, torch.Tensor], state: Dict[str, object],
+                     shares: Optional[Dict[str, float]] = None, group=None):
+    """:func:`adamw_update` with every leaf through the chunked torch ops,
+    each gradient clipped in place: the kernel's plain version, which the
+    card's tests and ``chip_smoke.py`` hold the kernel against."""
+    return _update(cfg, params, grads, state, shares, group,
+                   lambda *leaf: False)

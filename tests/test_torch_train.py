@@ -12,7 +12,11 @@
   ``remat=True`` against ``remat=False``;
 * AdamW (``adamw_update``, ``clip_by_global_norm``, ``lr_schedule``)
   against the reference's, with clipping active, over float32 and
-  bfloat16 parameters;
+  bfloat16 parameters; on the CPU every leaf, float64 too, takes the
+  chunked torch ops (the span counters say so) and nothing is built,
+  and the CUDA kernel's choice of leaves follows device, dtype and layout
+  (fake CUDA tensors; the kernel itself is held to the torch ops in
+  ``tests/test_torch_adamw_cuda.py`` on the card);
 * three train steps (``single``; ``serial`` and ``hybrid`` with 4
   microbatches; ``hybrid`` with ``compress_grads``) against the
   reference's jitted steps from the same parameters and batches, and
@@ -44,6 +48,7 @@ the share).
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -410,6 +415,185 @@ def test_clip_by_global_norm_matches_the_reference():
     for k in g:
         np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]),
                                    rtol=1e-6, atol=1e-7)
+
+
+def _update_counted(update, model, grads, state):
+    """``update`` inside an open span call; returns its span counters."""
+    from repro_torch.obs import span_trace, spans
+
+    call = spans.open_call("test.update", traced=True)
+    try:
+        update(AdamWConfig(warmup_steps=0), model, grads, state)
+    finally:
+        call.close()
+    return span_trace().counters
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_cpu_leaves_take_the_plain_path_and_the_counters_say_so(dtype):
+    """On the CPU every leaf, float64 too, goes through the chunked torch
+    ops: no kernel launch, ``repro.optim.plain_params`` counts the tree
+    and ``repro.optim.fused_params`` 0, and the bits are the plain
+    version's (``adamw_update_ref``)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.optim import adamw_update_ref
+
+    rng = np.random.default_rng(10)
+    arrays = _opt_arrays(rng)
+    g = {k: rng.standard_normal(v.shape).astype(np.float32)
+         for k, v in arrays.items()}
+    tdt = getattr(torch, dtype)
+    out = []
+    before = launch_counts()["adamw"]
+    for update in (adamw_update, adamw_update_ref):
+        model = _Leaves(arrays, tdt)
+        state = adamw_init(model)
+        counters = _update_counted(
+            update, model, {k: torch.from_numpy(v).to(tdt)
+                            for k, v in g.items()}, state)
+        assert counters["repro.optim.fused_params"] == 0
+        assert counters["repro.optim.plain_params"] == sum(
+            v.size for v in arrays.values())
+        out.append((dict(model.named_parameters()), state))
+    assert launch_counts()["adamw"] == before
+    for k in arrays:
+        assert torch.equal(out[0][0][k], out[1][0][k]), k
+        assert torch.equal(out[0][1]["m"][k], out[1][1]["m"][k]), k
+        assert torch.equal(out[0][1]["v"][k], out[1][1]["v"][k]), k
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,transpose,takes", [
+    ("bfloat16", "float32", False, True),
+    ("float32", "float32", False, True),
+    ("bfloat16", "bfloat16", False, True),
+    ("float32", "bfloat16", False, True),
+    ("float64", "float64", False, False),
+    ("float16", "float32", False, False),
+    ("bfloat16", "float32", True, False),
+])
+def test_kernel_takes_leaves_by_device_dtype_and_layout(p_dtype, g_dtype,
+                                                        transpose, takes):
+    """Which leaves the kernel takes, decided from what the tensors are
+    (fake CUDA tensors, so no card is needed): contiguous bfloat16 or
+    float32 parameters and gradients with float32 state on CUDA; never a
+    CPU leaf."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import adamw as K
+
+    def leaf(device):
+        t = [torch.empty(6, 5, device=device, dtype=getattr(torch, dt))
+             for dt in (p_dtype, g_dtype, "float32", "float32")]
+        return [x.t() for x in t] if transpose else t
+
+    with FakeTensorMode():
+        assert K.takes(*leaf("cuda")) is takes
+    cpu = leaf("cpu")
+    assert K.takes(*cpu) is False
+    # the launchers refuse what the kernel does not take, before any build
+    with pytest.raises(ValueError):
+        K.update(*cpu, *[torch.ones(())] * 4, 0.9, 0.95, 1e-8, 0.1)
+    with pytest.raises(ValueError):
+        K.sum_squares([cpu[1]], [1.0])
+
+
+def test_optimizer_runs_on_the_cpu_without_nvcc(monkeypatch):
+    """The optimizer updates CPU leaves where no nvcc exists: nothing is
+    built or loaded."""
+    import subprocess
+    import sys
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.optim import adamw as A
+
+    # a fresh interpreter imports the optimizer with no nvcc to be found
+    env = {"PATH": "", "CUDA_HOME": "/nonexistent",
+           "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+    subprocess.run([sys.executable, "-c", "import repro_torch.optim"],
+                   env=env, check=True, timeout=120)
+
+    def no_nvcc():
+        raise cuda_lib.BuildError("no nvcc here")
+
+    monkeypatch.setattr(cuda_lib, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(cuda_lib, "_libs", {})
+    rng = np.random.default_rng(12)
+    arrays = _opt_arrays(rng)
+    model = _Leaves(arrays, torch.float32)
+    state = A.adamw_init(model)
+    before = {k: p.clone() for k, p in model.named_parameters()}
+    A.adamw_update(A.AdamWConfig(warmup_steps=0), model,
+                   {k: torch.ones(v.shape) for k, v in arrays.items()}, state)
+    assert cuda_lib._libs == {}
+    assert all(not torch.equal(before[k], p)
+               for k, p in model.named_parameters())
+
+
+def test_bf16_clip_rounds_the_float32_product_once(monkeypatch):
+    """A bfloat16 gradient is clipped as the reference clips it: the
+    product with the float32 scale taken in float32 and rounded once to
+    bfloat16 (chunk by chunk, 7 elements here), not a product with the
+    scale first rounded to bfloat16, which differs in these elements."""
+    from repro_torch.optim import adamw as A
+
+    monkeypatch.setattr(A, "CHUNK", 7)
+    rng = np.random.default_rng(13)
+    g = {k: torch.from_numpy(v * 10).to(torch.bfloat16)
+         for k, v in _opt_arrays(rng).items()}
+    clipped, gn = clip_by_global_norm({k: v.clone() for k, v in g.items()},
+                                      0.7)
+    scale = torch.clamp(0.7 / torch.clamp(gn, min=1e-12), max=1.0)
+    assert scale.item() < 1.0
+    assert scale.bfloat16().float().item() != scale.item()
+    rounded_first = 0
+    for k, v in g.items():
+        want = (v.float() * scale).to(torch.bfloat16)
+        assert torch.equal(clipped[k], want), k
+        rounded_first += int((v.float() * scale.bfloat16().float())
+                             .to(torch.bfloat16).ne(want).sum())
+    assert rounded_first > 0
+    jg, jn = jax_clip({k: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16)
+                       for k, v in g.items()}, 0.7)
+    np.testing.assert_allclose(float(gn), float(jn), rtol=1e-6)
+    for k in g:
+        np.testing.assert_array_equal(
+            clipped[k].float().numpy(),
+            np.asarray(jg[k].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+def test_non_contiguous_leaves_are_updated_whole(monkeypatch, g_dtype):
+    """A leaf whose parameter and gradient are transposed views (not
+    contiguous) goes through the torch ops whole, in one piece, and gets
+    the bits its contiguous twin gets in chunks of 7 elements."""
+    from repro_torch.optim import adamw as A
+
+    monkeypatch.setattr(A, "CHUNK", 7)
+    rng = np.random.default_rng(14)
+    arrays = _opt_arrays(rng)
+    g = {k: 10 * rng.standard_normal(v.shape).astype(np.float32)
+         for k, v in arrays.items()}
+    gdt = getattr(torch, g_dtype)
+    flat = _Leaves(arrays, torch.bfloat16)
+    views = _Leaves({k: v.T.copy() for k, v in arrays.items()},
+                    torch.bfloat16)
+    for k in arrays:
+        getattr(views, k).data = getattr(views, k).data.t()
+    assert not views.w.is_contiguous()
+    out = []
+    for model, grads in ((flat, {k: torch.from_numpy(v).to(gdt)
+                                 for k, v in g.items()}),
+                         (views, {k: torch.from_numpy(v.T.copy()).to(gdt).t()
+                                  for k, v in g.items()})):
+        state = adamw_init(model)
+        counters = _update_counted(adamw_update, model, grads, state)
+        assert counters["repro.optim.plain_params"] == sum(
+            v.size for v in arrays.values())
+        out.append((model, state))
+    for k in arrays:
+        assert torch.equal(getattr(flat, k), getattr(views, k)), k
+        assert torch.equal(out[0][1]["m"][k], out[1][1]["m"][k]), k
+        assert torch.equal(out[0][1]["v"][k], out[1][1]["v"][k]), k
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 10, 11, 40, 99, 100, 150])
