@@ -1,8 +1,10 @@
-"""Assigned-architecture registry: ``get_config(arch_id)`` / ``ARCHS``.
+"""Architecture registry: ``get_config(arch_id)``, ``ARCHS`` and
+``PORT_ARCHS``.
 
-Each module defines ``CONFIG`` with the exact published configuration; the
-files are the reference package's ``repro/configs/`` as data.  Only the
-``dense`` family runs in the port so far (see ``repro_torch.models.lm``).
+Each module defines ``CONFIG`` with the exact published configuration.
+``ARCHS`` are the reference package's ``repro/configs/`` as data;
+``PORT_ARCHS`` are configurations the port runs and the reference package
+does not have.
 """
 
 from importlib import import_module
@@ -22,11 +24,18 @@ _MODULES = {
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 }
 
+#: configurations of the port alone
+_PORT_MODULES = {
+    "trinity-mini": "trinity_mini",
+}
+
 ARCHS = tuple(_MODULES)
+PORT_ARCHS = tuple(_PORT_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; one of {sorted(_MODULES)}")
-    mod = import_module(f".{_MODULES[arch]}", __package__)
+    mods = {**_MODULES, **_PORT_MODULES}
+    if arch not in mods:
+        raise KeyError(f"unknown arch {arch!r}; one of {sorted(mods)}")
+    mod = import_module(f".{mods[arch]}", __package__)
     return mod.CONFIG.validate()

@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     qk_norm=True,
     window=1024,           # local layers: 1024-token sliding window
     local_global_ratio=5,  # 5 local : 1 global
-    rope_theta=1e4,        # local theta; global layers use 1e6 (layer_flags)
+    rope_theta=1e4,        # local layers' theta
+    global_rope_theta=1e6,
     tie_embeddings=True,
 )

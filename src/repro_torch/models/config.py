@@ -29,16 +29,24 @@ class ModelConfig:
     rope_theta: float = 1e4
     window: int = 0              # sliding-window size for local layers (0 = full)
     local_global_ratio: int = 0  # gemma3: N local layers per global layer
+    global_rope_theta: float = 0.0  # global layers' rope theta (0 = no rope)
     attn_logit_softcap: float = 0.0
     tie_embeddings: bool = False
+    attn_gate: bool = False      # afmoe: o * sigmoid(x wgate) before wo
+    sandwich_norm: bool = False  # afmoe: sublayer outputs normed before the add
+    embed_scale: bool = False    # afmoe (muP): embeddings times sqrt(d_model)
 
     # MoE
     n_experts: int = 0
     top_k: int = 0
     d_expert: int = 0
     shared_expert: bool = False
-    capacity_factor: float = 1.25
+    d_shared: int = 0         # shared expert's width (0 = d_ff or d_expert)
+    capacity_factor: float = 1.25  # 0 = dropless: every routed pair computed
     moe_every: int = 1        # llama4: 2 => alternate dense/MoE layers
+    n_dense_layers: int = 0   # afmoe: leading layers with a d_ff MLP
+    router_score: str = "softmax"  # "softmax" | "sigmoid" (with expert bias)
+    route_scale: float = 1.0  # routed weights' scale after renormalising
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -77,6 +85,7 @@ class ModelConfig:
             assert self.n_heads % max(1, self.n_kv_heads) == 0
         if self.family == "moe":
             assert self.n_experts > 0 and self.top_k > 0 and self.d_expert > 0
+            assert self.router_score in ("softmax", "sigmoid")
         if self.family in ("ssm", "hybrid"):
             assert self.ssm_state > 0
             assert self.d_inner % self.ssm_head_dim == 0
@@ -123,7 +132,7 @@ class ModelConfig:
             q = d * self.n_heads * self.head_dim
             kv = 2 * d * self.n_kv_heads * self.head_dim
             o = self.n_heads * self.head_dim * d
-            att = q + kv + o
+            att = q + kv + o + (q if self.attn_gate else 0)
         ffn = 3 * d * self.d_ff if self.d_ff else 0
         moe = 0
         if self.n_experts:
@@ -131,7 +140,7 @@ class ModelConfig:
             n_eff = self.top_k if active_only else self.n_experts
             moe = per_expert * n_eff + d * self.n_experts  # + router
             if self.shared_expert:
-                moe += 3 * d * self.d_ff if self.d_ff else per_expert
+                moe += 3 * d * (self.d_shared or self.d_ff or self.d_expert)
         ssm = 0
         if self.ssm_state:
             di = self.d_inner
@@ -144,4 +153,5 @@ class ModelConfig:
             # mamba layers + one shared attention/ffn block
             return emb + self.n_layers * ssm + (att + ffn)  # shared block counted once
         n = self.n_layers + (self.enc_layers if self.family == "encdec" else 0)
-        return emb + n * per_layer
+        # leading dense layers of a MoE stack hold the d_ff MLP instead
+        return emb + n * per_layer + self.n_dense_layers * (ffn - moe)

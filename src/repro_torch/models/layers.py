@@ -40,12 +40,14 @@ from torch import nn
 
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..obs import spans
 from ..sharding import collectives as C
 
 __all__ = ["Attention", "Block", "LOGICAL_AXES", "MLP", "MoE", "attn_axes",
            "attn_spec", "materialize_", "mlp_axes", "mlp_spec",
            "moe_axes", "moe_capacity", "moe_loop_ref", "moe_route",
-           "moe_spec", "rmsnorm", "rope", "rope_tables", "sharded"]
+           "moe_route_sigmoid", "moe_spec", "rmsnorm", "rope", "rope_tables",
+           "sharded"]
 
 #: the logical axis vocabulary (mapped to mesh axes by
 #: :mod:`repro_torch.sharding.rules`)
@@ -128,7 +130,9 @@ def rope_tables(positions: torch.Tensor, theta: float,
     shares ``theta``."""
     half = hd // 2
     dev = positions.device
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32, device=dev))
+    # filled on the device: no copy from the host, which would wait for it
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32,
+                                     device=dev))
     freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=dev)
                       * (log_theta / half))
     ang = positions[..., :, None].float() * freqs
@@ -162,6 +166,8 @@ def attn_spec(cfg) -> Dict[str, tuple]:
     if cfg.qk_norm:
         s["gamma_q"] = (hd,)
         s["gamma_k"] = (hd,)
+    if cfg.attn_gate:
+        s["wgate"] = (d, cfg.n_heads * hd)
     return s
 
 
@@ -172,6 +178,8 @@ def attn_axes(cfg) -> Dict[str, tuple]:
     if cfg.qk_norm:
         s["gamma_q"] = (None,)
         s["gamma_k"] = (None,)
+    if cfg.attn_gate:
+        s["wgate"] = ("embed", "heads")
     return s
 
 
@@ -274,8 +282,10 @@ class Attention(nn.Module):
           ``memory`` at every call, with no rope, no mask and no cache;
           returns ``(out, None)``.
 
-        ``rope_cs`` is the step's ``(cos, sin)`` from :func:`rope_tables`.
-        With a mesh in ``ctx``, :meth:`_sharded` runs this rank's heads."""
+        ``rope_cs`` is the step's ``(cos, sin)`` from :func:`rope_tables`,
+        or None for a layer without rope.  With ``cfg.attn_gate`` the heads'
+        output is multiplied by ``sigmoid(x @ wgate)`` before ``wo``.  With a
+        mesh in ``ctx``, :meth:`_sharded` runs this rank's heads."""
         if sharded(ctx):
             return self._sharded(x, window=window, rope_cs=rope_cs,
                                  cache=cache, cache_index=cache_index,
@@ -303,8 +313,9 @@ class Attention(nn.Module):
                                       causal=False).transpose(1, 2)
             return out.reshape(B, S, cfg.n_heads * hd) @ self.wo, None
 
-        q = rope(q, rope_cs)
-        k = rope(k, rope_cs)
+        if rope_cs is not None:
+            q = rope(q, rope_cs)
+            k = rope(k, rope_cs)
 
         if cache is None:
             # the kernel reads (B, heads, S, hd) views of the projections
@@ -312,7 +323,7 @@ class Attention(nn.Module):
                                   v.transpose(1, 2), causal=causal,
                                   window=window)
             out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
-            return out @ self.wo, {"k": k, "v": v}
+            return self._gated(out, x) @ self.wo, {"k": k, "v": v}
 
         if S != 1:
             raise NotImplementedError(
@@ -322,7 +333,15 @@ class Attention(nn.Module):
         cv[:, cache_index] = v[:, 0]
         out = decode_attention(q[:, 0], ck, cv, cache_index + 1,
                                window=window)
-        return out.reshape(B, 1, cfg.n_heads * hd) @ self.wo, cache
+        out = self._gated(out.reshape(B, 1, cfg.n_heads * hd), x)
+        return out @ self.wo, cache
+
+    def _gated(self, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The heads' output ``(B, S, H hd)`` times ``sigmoid(x @ wgate)``
+        with ``cfg.attn_gate``, else as it is."""
+        if not self.cfg.attn_gate:
+            return out
+        return out * torch.sigmoid(x @ self.wgate)
 
     def _sharded(self, x, *, window, rope_cs, cache, cache_index, memory,
                  causal, ctx):
@@ -337,6 +356,8 @@ class Attention(nn.Module):
         Returns ``(out, {"k", "v"})`` with this rank's computed K/V heads
         (prefill), ``(out, cache)`` or ``(out, None)``."""
         cfg = self.cfg
+        if cfg.attn_gate:
+            raise NotImplementedError("the attention gate runs on one device")
         g, tp, r, hl = _local_heads(ctx, cfg)
         B, S, _ = x.shape
         hd = cfg.head_dim
@@ -372,8 +393,9 @@ class Attention(nn.Module):
 
         if memory is not None:
             return finish(attend(q, k, v, causal=False, window=0)), None
-        q = rope(q, rope_cs)
-        k = rope(k, rope_cs)
+        if rope_cs is not None:
+            q = rope(q, rope_cs)
+            k = rope(k, rope_cs)
         if cache is None:
             return finish(attend(q, k, v, causal=causal, window=window)), \
                 {"k": k, "v": v}
@@ -453,17 +475,25 @@ class MLP(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# MoE (top-k routing, per-expert static capacity; single-device path)
+# MoE (top-k routing, per-expert static capacity or dropless; single-device
+# path)
 # ---------------------------------------------------------------------------
+def _shared_width(cfg) -> int:
+    return cfg.d_shared or cfg.d_ff or cfg.d_expert
+
+
 def moe_spec(cfg) -> Dict[str, tuple]:
     """Parameter shapes of one MoE FFN: the router, every expert's SwiGLU
-    stacked on a leading expert axis and, with ``cfg.shared_expert``, one
-    shared MLP of width ``d_ff or d_expert``."""
+    stacked on a leading expert axis, with sigmoid routing the experts'
+    selection bias (float32) and, with ``cfg.shared_expert``, one shared
+    MLP of width ``d_shared or d_ff or d_expert``."""
     d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_expert
     s = {"router": (d, e), "wg": (e, d, fe), "wu": (e, d, fe),
          "wd": (e, fe, d)}
+    if cfg.router_score == "sigmoid":
+        s["expert_bias"] = (e,)
     if cfg.shared_expert:
-        s["shared"] = mlp_spec(cfg, cfg.d_ff or cfg.d_expert)
+        s["shared"] = mlp_spec(cfg, _shared_width(cfg))
     return s
 
 
@@ -471,6 +501,8 @@ def moe_axes(cfg) -> Dict[str, tuple]:
     """The logical axes of :func:`moe_spec`'s leaves."""
     s = {"router": ("embed", None), "wg": ("experts", "embed", None),
          "wu": ("experts", "embed", None), "wd": ("experts", None, "embed")}
+    if cfg.router_score == "sigmoid":
+        s["expert_bias"] = (None,)
     if cfg.shared_expert:
         s["shared"] = mlp_axes(cfg)
     return s
@@ -479,7 +511,10 @@ def moe_axes(cfg) -> Dict[str, tuple]:
 def moe_capacity(tokens: int, cfg) -> int:
     """Tokens each expert keeps of ``tokens``: the reference's
     ``_moe_capacity``, ``max(1, int(T * top_k * capacity_factor / E))``, and
-    never more than ``tokens``."""
+    never more than ``tokens``; all of them when ``capacity_factor`` is 0
+    (dropless)."""
+    if cfg.capacity_factor <= 0:
+        return tokens
     cap = max(1, int(tokens * cfg.top_k * cfg.capacity_factor
                      / cfg.n_experts))
     return min(cap, tokens)
@@ -497,12 +532,48 @@ def moe_route(x_flat: torch.Tensor, router: torch.Tensor, top_k: int):
     return wts / wts.sum(-1, keepdim=True).clamp_min(1e-9), ids
 
 
+def moe_route_sigmoid(x_flat: torch.Tensor, router: torch.Tensor,
+                      bias: torch.Tensor, top_k: int, scale: float):
+    """The sigmoid router (AfMoE, DeepSeek-V3 style): ``s = sigmoid(x @
+    router)`` in float32; the ``top_k`` experts of ``s + bias`` (the bias
+    decides the selection only); weights ``scale * s / sum(s)`` over the
+    selected, from the unbiased scores.  Returns float32 weights and int64 expert ids, both
+    ``(T, top_k)``, in descending ``s + bias``."""
+    s = torch.sigmoid(x_flat.float() @ router.float())
+    ids = torch.topk(s + bias, top_k, dim=-1).indices
+    wts = s.gather(1, ids)
+    return wts * (scale / wts.sum(-1, keepdim=True)), ids
+
+
 def _swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             wd: torch.Tensor) -> torch.Tensor:
     """Batched expert SwiGLU ``(silu(x wg) * (x wu)) wd`` over a leading
     expert axis, cast to float32 (the reference's ``ye``)."""
     h = nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
     return torch.bmm(h, wd).float()
+
+
+def _grouped_swiglu(x: torch.Tensor, ends: torch.Tensor, wg: torch.Tensor,
+                    wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU over its contiguous rows of ``x`` ``(P, D)``
+    (expert ``e`` owns rows ``[ends[e - 1], ends[e])``), as grouped products
+    whose group offsets stay on the device, in ``x``'s dtype: the
+    arithmetic of :func:`_swiglu` on each expert's rows, before its cast."""
+    offs = ends.to(torch.int32)
+    h = (nn.functional.silu(torch._grouped_mm(x, wg, offs=offs))
+         * torch._grouped_mm(x, wu, offs=offs))
+    return torch._grouped_mm(h, wd, offs=offs)
+
+
+def _begin(sp, name: str) -> int:
+    """Open an MoE span under the open call's spans (unmirrored: the
+    profiler names the kernels already); 0 when spans are off."""
+    return sp.begin(name, mirror=False) if sp is not None else 0
+
+
+def _end(sp, sid: int) -> None:
+    if sp is not None:
+        sp.end(sid)
 
 
 def moe_loop_ref(x_flat: torch.Tensor, wts: torch.Tensor, ids: torch.Tensor,
@@ -536,55 +607,85 @@ def moe_loop_ref(x_flat: torch.Tensor, wts: torch.Tensor, ids: torch.Tensor,
 
 class MoE(nn.Module):
     """Top-k MoE FFN (the reference's ``layers.moe`` without a sharding
-    context): ``router``, the experts' ``wg``/``wu`` ``(E, D, Fe)`` and
-    ``wd`` ``(E, Fe, D)`` and, with ``cfg.shared_expert``, a ``shared``
-    :class:`MLP` added last.
+    context): ``router`` (and, with sigmoid routing, ``expert_bias``), the
+    experts' ``wg``/``wu`` ``(E, D, Fe)`` and ``wd`` ``(E, Fe, D)`` and,
+    with ``cfg.shared_expert``, a ``shared`` :class:`MLP` added last.
 
-    It computes the reference's function: each expert keeps the first
-    ``moe_capacity(T)`` tokens routed to it, in token order, and drops the
-    rest; each kept token's expert output, cast to float32 and scaled by
-    its routing weight, is summed into a float32 ``y`` in ascending expert
-    id, then cast to the model's dtype.  Unlike the reference's loop over
-    every expert (:func:`moe_loop_ref`), it runs batched products over the
-    experts the tokens use, with shapes fixed by ``T`` alone (no value is
-    read back to the host):
+    With a capacity (``cfg.capacity_factor > 0``) it computes the
+    reference's function: each expert keeps the first ``moe_capacity(T)``
+    tokens routed to it, in token order, and drops the rest; each kept
+    token's expert output, cast to float32 and scaled by its routing
+    weight, is summed into a float32 ``y`` in ascending expert id, then
+    cast to the model's dtype.  Dropless (``capacity_factor`` 0) every
+    routed pair is computed and summed the same way.  Unlike the
+    reference's loop over every expert (:func:`moe_loop_ref`), it runs
+    batched products over the experts the tokens use, and reads no value
+    back to the host:
 
-    * when ``T * top_k >= E`` (a prompt), every expert's capacity slots are
-      filled from a cumulative count over token order and the three
-      products run as ``torch.bmm`` over the ``(E, C, D)`` slots, as the
-      reference computes them;
+    * when ``T * top_k >= E`` (a prompt) with a capacity, every expert's
+      capacity slots are filled from a cumulative count over token order
+      and the three products run as ``torch.bmm`` over the ``(E, C, D)``
+      slots, as the reference computes them;
+    * when ``T * top_k >= E`` dropless, the pairs are sorted by expert and
+      the products run as grouped products over each expert's contiguous
+      rows, the group offsets kept on the device;
     * when fewer (a decode step), the products run per routed
       ``(token, expert)`` pair on that expert's weights, gathered, so only
       the ``T * top_k`` routed experts are read, not all ``E``.
 
     Each token then adds its up to ``top_k`` contributions one by one, in
-    ascending expert id: no atomics, the same bits on every run."""
+    ascending expert id: no atomics, the same bits on every run.
+
+    Under traced spans the call opens the device spans
+    ``repro.moe.route``, ``.dispatch``, ``.experts``, ``.combine`` and
+    ``.shared`` and counts ``repro.moe.assignments`` (pairs computed),
+    ``.max_load`` (the largest expert's pairs) and ``.dropped`` (pairs
+    routed and not computed); untraced it counts nothing."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, device: torch.device):
         super().__init__()
         self.cfg = cfg
         for name, shape in moe_spec(cfg).items():
-            if name != "shared":
+            if name == "expert_bias":
+                # a float32 buffer of the checkpoint, added to the float32
+                # scores to decide the selection only
+                self.expert_bias = _param(shape, torch.float32, device)
+            elif name != "shared":
                 setattr(self, name, _param(shape, dtype, device))
         if cfg.shared_expert:
             self.shared = MLP(cfg, dtype=dtype, device=device,
-                              d_ff=cfg.d_ff or cfg.d_expert)
+                              d_ff=_shared_width(cfg))
+
+    def route(self, x_flat: torch.Tensor):
+        """``(wts, ids)`` of the configuration's router."""
+        cfg = self.cfg
+        if cfg.router_score == "sigmoid":
+            return moe_route_sigmoid(x_flat, self.router, self.expert_bias,
+                                     cfg.top_k, cfg.route_scale)
+        return moe_route(x_flat, self.router, cfg.top_k)
 
     def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
         cfg = self.cfg
         B, S, D = x.shape
         T, E = B * S, cfg.n_experts
         x_flat = x.reshape(T, D)
-        wts, ids = moe_route(x_flat, self.router, cfg.top_k)
+        sp = spans.current()
+        sid = _begin(sp, "repro.moe.route")
+        wts, ids = self.route(x_flat)
+        _end(sp, sid)
         if not sharded(ctx):
-            y = self.combine(x_flat, wts, ids, moe_capacity(T, cfg))
+            y = self.combine(x_flat, wts, ids, moe_capacity(T, cfg), sp)
+        elif cfg.capacity_factor <= 0:
+            raise NotImplementedError("a dropless MoE runs on one device")
         elif ctx.moe_gather_tokens:
             y = self._gather_tokens(x_flat, wts, ids, ctx)
         else:
             y = self._expert_parallel(x_flat, wts, ids, ctx)
         y = y.to(x.dtype).view(B, S, D)
         if cfg.shared_expert:
+            sid = _begin(sp, "repro.moe.shared")
             y = y + self.shared(x, ctx)
+            _end(sp, sid)
         return y
 
     def _expert_parallel(self, x_flat, wts, ids, ctx):
@@ -658,21 +759,27 @@ class MoE(nn.Module):
         return C.reduce_from(yl, g).float()
 
     def combine(self, x_flat: torch.Tensor, wts: torch.Tensor,
-                ids: torch.Tensor, capacity: int) -> torch.Tensor:
+                ids: torch.Tensor, capacity: int, sp=None) -> torch.Tensor:
         """The float32 ``(T, D)`` sum of :func:`moe_loop_ref` for routing
         ``(wts, ids)``: per routed pair when ``T * top_k < E`` (a decode
-        step), else over every expert's capacity slots (a prompt)."""
+        step), else (a prompt) over every expert's capacity slots, or
+        dropless over every expert's grouped rows.  ``sp``: the open
+        call's spans, or None."""
         T, k = ids.shape
         if T * k < self.wg.shape[0]:
-            return self._combine_pairs(x_flat, wts, ids, capacity)
-        return self._combine_slots(x_flat, wts, ids, capacity)
+            return self._combine_pairs(x_flat, wts, ids, capacity, sp)
+        if self.cfg.capacity_factor <= 0:
+            return self._combine_grouped(x_flat, wts, ids, sp)
+        return self._combine_slots(x_flat, wts, ids, capacity, sp)
 
     def _combine_slots(self, x_flat: torch.Tensor, wts: torch.Tensor,
-                       ids: torch.Tensor, capacity: int) -> torch.Tensor:
+                       ids: torch.Tensor, capacity: int,
+                       sp=None) -> torch.Tensor:
         """:meth:`combine` over the ``(E, C, D)`` capacity slots, every
         expert's products as one ``torch.bmm``."""
         T, D = x_flat.shape
         k, E = ids.shape[1], self.wg.shape[0]
+        sid = _begin(sp, "repro.moe.dispatch")
         wts, ids, rank, kept = _rank_pairs(wts, ids, E, capacity)
         # slot e * C + rank of the expert's buffer; dropped pairs write the
         # spare row E * C, which no product reads
@@ -680,24 +787,95 @@ class MoE(nn.Module):
                            torch.full_like(ids, E * capacity))
         buf = x_flat.new_zeros((E * capacity + 1, D))
         buf[slot.reshape(-1)] = x_flat.repeat_interleave(k, dim=0)
+        _end(sp, sid)
+        sid = _begin(sp, "repro.moe.experts")
         ye = _swiglu(buf[:-1].view(E, capacity, D), self.wg, self.wu,
                      self.wd).view(E * capacity, D)
-        return _sum_kept(ye[slot.clamp_max(E * capacity - 1)], wts, kept)
+        _end(sp, sid)
+        sid = _begin(sp, "repro.moe.combine")
+        y = _sum_kept(ye[slot.clamp_max(E * capacity - 1)], wts, kept)
+        _end(sp, sid)
+        self._tally(sp, wts, rank, kept)
+        return y
 
     def _combine_pairs(self, x_flat: torch.Tensor, wts: torch.Tensor,
-                       ids: torch.Tensor, capacity: int) -> torch.Tensor:
+                       ids: torch.Tensor, capacity: int,
+                       sp=None) -> torch.Tensor:
         """:meth:`combine` per routed ``(token, expert)`` pair on that
         expert's gathered weights: only the ``T * top_k`` routed experts
         are read, not all ``E``."""
         T, D = x_flat.shape
         k, E = ids.shape[1], self.wg.shape[0]
-        wts, ids, _, kept = _rank_pairs(wts, ids, E, capacity)
+        sid = _begin(sp, "repro.moe.dispatch")
+        wts, ids, rank, kept = _rank_pairs(wts, ids, E, capacity)
         flat = ids.reshape(-1)
         xe = x_flat.repeat_interleave(k, dim=0)[:, None]          # (T k, 1, D)
+        _end(sp, sid)
+        sid = _begin(sp, "repro.moe.experts")
         ye = _swiglu(xe, self.wg.index_select(0, flat),
                      self.wu.index_select(0, flat),
                      self.wd.index_select(0, flat)).view(T, k, D)
-        return _sum_kept(ye, wts, kept)
+        _end(sp, sid)
+        sid = _begin(sp, "repro.moe.combine")
+        y = _sum_kept(ye, wts, kept)
+        _end(sp, sid)
+        self._tally(sp, wts, rank, kept)
+        return y
+
+    def _combine_grouped(self, x_flat: torch.Tensor, wts: torch.Tensor,
+                         ids: torch.Tensor, sp=None) -> torch.Tensor:
+        """:meth:`combine` dropless: the ``T * top_k`` pairs sorted by
+        expert (token order within an expert), their rows gathered, each
+        expert's products over its contiguous rows (:func:`_grouped_swiglu`,
+        the group ends found on the device), the outputs put back as
+        ``(top_k, T, D)`` and summed as :func:`_sum_kept` sums them (each
+        output cast to float32 and times its weight, added one by one in
+        ascending expert id), a pass over the sum a pair."""
+        T, D = x_flat.shape
+        k, E = ids.shape[1], self.wg.shape[0]
+        sid = _begin(sp, "repro.moe.dispatch")
+        # each token's pairs in ascending expert id: the order of the sum
+        ids, order = torch.sort(ids, dim=-1)
+        wts = wts.gather(1, order)
+        by_expert, pairs = torch.sort(ids.reshape(-1), stable=True)
+        ends = torch.searchsorted(by_expert, torch.arange(
+            1, E + 1, device=ids.device, dtype=by_expert.dtype))
+        xs = x_flat.index_select(0, pairs // k)
+        _end(sp, sid)
+        sid = _begin(sp, "repro.moe.experts")
+        ye = _grouped_swiglu(xs, ends, self.wg, self.wu, self.wd)
+        _end(sp, sid)
+        sid = _begin(sp, "repro.moe.combine")
+        back = torch.empty_like(pairs).scatter_(
+            0, pairs, torch.arange(T * k, device=pairs.device))
+        ye = ye.index_select(0, back.view(T, k).t().reshape(-1)).view(k, T, D)
+        y = torch.zeros((T, D), dtype=torch.float32, device=ye.device)
+        for j in range(k):
+            y.addcmul_(ye[j], wts[:, j, None])
+        _end(sp, sid)
+        if sp is not None:
+            self._count(sp, T * k, ends[-1], torch.diff(
+                ends, prepend=ends.new_zeros(1)).max())
+        return y
+
+    def _tally(self, sp, wts: torch.Tensor, rank: torch.Tensor,
+               kept: torch.Tensor) -> None:
+        """:meth:`_count` of a capacity schedule's pairs (ranked by
+        :func:`_rank_pairs`), under spans only."""
+        if sp is None:
+            return
+        assigned = wts > 0
+        self._count(sp, assigned.sum(), kept.sum(), torch.where(
+            assigned, rank + 1, torch.zeros_like(rank)).max())
+
+    @staticmethod
+    def _count(sp, routed, computed: torch.Tensor,
+               max_load: torch.Tensor) -> None:
+        """The call's deferred counters (read when the spans are):
+        ``repro.moe.assignments``, ``.max_load`` and ``.dropped``."""
+        sp.count_later("repro.moe.assignments", computed)
+        sp.count_later("repro.moe.max_load", max_load)
+        sp.count_later("repro.moe.dropped", routed - computed)
 
 
 def _rank_pairs(wts: torch.Tensor, ids: torch.Tensor, n_experts: int,
@@ -740,7 +918,9 @@ class Block(nn.Module):
     ``x + xattn(lnx(x), memory)`` (``vlm``: times ``tanh(xgate)``); then
     ``x + ffn(ln2(x))`` with ``ffn`` the ``mlp`` or, for ``moe``, the
     :class:`MoE`.  ``cross`` registers ``lnx`` and ``xattn`` (and, when
-    ``gated``, ``xgate``)."""
+    ``gated``, ``xgate``).  With ``cfg.sandwich_norm`` each sublayer's
+    output is normed before its residual add: ``x + ln1_post(attn(...))``
+    and ``x + ln2_post(ffn(...))``."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, device: torch.device,
                  moe: bool = False, cross: bool = False, gated: bool = False):
@@ -749,6 +929,9 @@ class Block(nn.Module):
         self.ln1 = _param((cfg.d_model,), dtype, device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.ln2 = _param((cfg.d_model,), dtype, device)
+        if cfg.sandwich_norm:
+            self.ln1_post = _param((cfg.d_model,), dtype, device)
+            self.ln2_post = _param((cfg.d_model,), dtype, device)
         if moe:
             self.moe = MoE(cfg, dtype=dtype, device=device)
         else:
@@ -767,6 +950,8 @@ class Block(nn.Module):
         out, kv = self.attn(rmsnorm(x, self.ln1, eps), window=window,
                             rope_cs=rope_cs, cache=cache,
                             cache_index=cache_index, causal=causal, ctx=ctx)
+        if self.cfg.sandwich_norm:
+            out = rmsnorm(out, self.ln1_post, eps)
         x = x + out
         if memory is not None:
             out, _ = self.xattn(rmsnorm(x, self.lnx, eps), memory=memory,
@@ -776,4 +961,7 @@ class Block(nn.Module):
             x = x + out
         h = rmsnorm(x, self.ln2, eps)
         ffn = self.moe if hasattr(self, "moe") else self.mlp
-        return x + (ffn(h) if ctx is None else ffn(h, ctx)), kv
+        out = ffn(h) if ctx is None else ffn(h, ctx)
+        if self.cfg.sandwich_norm:
+            out = rmsnorm(out, self.ln2_post, eps)
+        return x + out, kv

@@ -35,6 +35,8 @@ Entry points:
 * ``loss_fn(params, cfg, batch, ctx=None, remat=True)`` -> scalar CE loss
 * ``zeros_cache(cfg, batch, max_len, device=None)`` -> decode cache
 * ``prefill(params, cfg, batch, ctx=None, max_len=0)`` -> (cache, logits)
+* ``PrefillGraphs(params, cfg)(tokens)`` -> (cache, logits), each prompt
+  shape's prefill captured once as a CUDA graph and replayed
 * ``decode_step(params, cfg, cache, tokens, ctx=None)`` -> (cache, logits)
 * ``param_pspecs(cfg, ctx)`` / ``cache_pspecs(cfg, ctx)`` -> PartitionSpecs
 * ``shard_params(model, ctx)`` / ``gather_params(local, ctx)``
@@ -80,6 +82,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import cuda_lib
 from ..linalg.tiles import resolve_device
 from ..sharding import collectives as C
 from ..sharding.rules import (PartitionSpec, axes_of, local_shape,
@@ -88,7 +91,8 @@ from . import layers as L
 from .config import ModelConfig
 from .ssm import SSM, SSM_AXES, ssm_spec, ssm_state_spec
 
-__all__ = ["CE_CHUNK", "LM", "SSMBlock", "abstract_params", "block_spec",
+__all__ = ["CE_CHUNK", "LM", "PrefillGraphs", "SSMBlock", "abstract_params",
+           "block_spec",
            "cache_pspecs", "cache_struct", "decode_step", "embed_lookup",
            "forward", "gather_leaves", "gather_params", "init_params", "layer_flags",
            "local_params", "logits_from_hidden", "loss_fn", "model_spec",
@@ -122,15 +126,19 @@ def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """Parameter shapes of one layer's block: attention and MLP (dense), or
-    MoE (moe), plus ``lnx`` and ``xattn`` (encdec) and ``xgate`` (vlm); or
-    ``{ln1, ssm}`` (ssm, hybrid)."""
+    MoE (moe; an MLP too where leading layers are dense, the union of both
+    kinds of layer), plus ``lnx`` and ``xattn`` (encdec) and ``xgate``
+    (vlm), and the post-sublayer norms with ``sandwich_norm``; or ``{ln1,
+    ssm}`` (ssm, hybrid)."""
     fam, d = cfg.family, cfg.d_model
     if fam in _SSM_FAMILIES:
         return {"ln1": (d,), "ssm": ssm_spec(cfg)}
     s = {"ln1": (d,), "attn": L.attn_spec(cfg), "ln2": (d,)}
+    if cfg.sandwich_norm:
+        s["ln1_post"] = s["ln2_post"] = (d,)
     if fam == "moe":
         s["moe"] = L.moe_spec(cfg)
-    else:
+    if fam != "moe" or cfg.n_dense_layers:
         s["mlp"] = L.mlp_spec(cfg)
     if fam in _CROSS_FAMILIES:
         s["lnx"] = (d,)
@@ -169,9 +177,11 @@ def _block_axes(cfg: ModelConfig) -> Dict[str, Any]:
     if fam in _SSM_FAMILIES:
         return {"ln1": ("embed",), "ssm": dict(SSM_AXES)}
     s = {"ln1": ("embed",), "attn": L.attn_axes(cfg), "ln2": ("embed",)}
+    if cfg.sandwich_norm:
+        s["ln1_post"] = s["ln2_post"] = ("embed",)
     if fam == "moe":
         s["moe"] = L.moe_axes(cfg)
-    else:
+    if fam != "moe" or cfg.n_dense_layers:
         s["mlp"] = L.mlp_axes(cfg)
     if fam in _CROSS_FAMILIES:
         s["lnx"] = ("embed",)
@@ -254,9 +264,10 @@ def n_attn_slots(cfg: ModelConfig) -> int:
 def layer_flags(cfg: ModelConfig) -> Dict[str, List]:
     """Per-layer flags, as host lists.
 
-    * dense: ``window`` (0 = full) and rope ``theta``; with
-      ``local_global_ratio = r`` every ``(r+1)``-th layer is global (window
-      0, theta 1e6) and the rest local (``cfg.window``, ``cfg.rope_theta``);
+    * dense and moe: ``window`` (0 = full) and rope ``theta`` (0 = no
+      rope); with ``local_global_ratio = r`` every ``(r+1)``-th layer is
+      global (window 0, ``cfg.global_rope_theta``) and the rest local
+      (``cfg.window``, ``cfg.rope_theta``);
     * hybrid: ``use_attn`` (layer ``l`` runs the shared block when ``l %
       attn_every == attn_every - 1``) and ``attn_slot``, the reference's
       ``max(cumsum(use_attn) - 1, 0)``: where ``use_attn``, the K/V slot the
@@ -278,7 +289,8 @@ def layer_flags(cfg: ModelConfig) -> Dict[str, List]:
         r = cfg.local_global_ratio
         is_global = [i % (r + 1) == r for i in range(n)]
         flags = {"window": [0 if g else cfg.window for g in is_global],
-                 "theta": [1e6 if g else cfg.rope_theta for g in is_global]}
+                 "theta": [cfg.global_rope_theta if g else cfg.rope_theta
+                           for g in is_global]}
     else:
         flags = {"window": [cfg.window] * n, "theta": [cfg.rope_theta] * n}
     if cfg.family == "vlm" and cfg.cross_attn_every:
@@ -326,7 +338,8 @@ class SSMBlock(nn.Module):
 class LM(nn.Module):
     """The model: ``embed.table``, ``blocks`` (an ``nn.ModuleList`` of
     :class:`~repro_torch.models.layers.Block` for the dense, moe, encdec and
-    vlm families, of :class:`SSMBlock` for ssm and hybrid), ``final_norm``,
+    vlm families, the first ``n_dense_layers`` of a moe stack with an MLP,
+    of :class:`SSMBlock` for ssm and hybrid), ``final_norm``,
     ``unembed.out`` when embeddings are not tied, for a hybrid the
     ``shared`` attention+MLP :class:`~repro_torch.models.layers.Block` and
     for an encdec the encoder's ``enc_blocks``.  Parameters are made empty
@@ -341,14 +354,15 @@ class LM(nn.Module):
         v, d = padded_vocab(cfg), cfg.d_model
         self.embed = _Embed(v, d, dt, device)
         if fam in _SSM_FAMILIES:
-            block, kw = SSMBlock, {}
+            self.blocks = nn.ModuleList(
+                SSMBlock(cfg, dtype=dt, device=device)
+                for _ in range(cfg.n_layers))
         else:
-            block, kw = L.Block, {"moe": fam == "moe",
-                                  "cross": fam in _CROSS_FAMILIES,
-                                  "gated": fam == "vlm"}
-        self.blocks = nn.ModuleList(
-            block(cfg, dtype=dt, device=device, **kw)
-            for _ in range(cfg.n_layers))
+            self.blocks = nn.ModuleList(
+                L.Block(cfg, dtype=dt, device=device,
+                        moe=fam == "moe" and i >= cfg.n_dense_layers,
+                        cross=fam in _CROSS_FAMILIES, gated=fam == "vlm")
+                for i in range(cfg.n_layers))
         self.final_norm = L._param((d,), dt, device)
         if not cfg.tie_embeddings:
             self.unembed = _Unembed(d, v, dt, device)
@@ -568,6 +582,14 @@ def logits_from_hidden(params: LM, cfg: ModelConfig, h: torch.Tensor,
     return C.all_gather(logits, logits.dim() - 1, ctx.group(ctx.model_axis))
 
 
+def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+           sh: Optional["_Shard"], ctx) -> torch.Tensor:
+    """The tokens' embeddings, times ``sqrt(d_model)`` with
+    ``cfg.embed_scale``."""
+    x = embed_lookup(_leaf(sh, params, "embed.table"), tokens, ctx)
+    return x * cfg.d_model ** 0.5 if cfg.embed_scale else x
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  ctx=None) -> torch.Tensor:
     """``table[ids]``; with a mesh, ``table`` is this rank's vocabulary
@@ -713,8 +735,9 @@ def _put_prompt(dst: torch.Tensor, src: torch.Tensor, cfg: ModelConfig,
 
 
 def _rope_by_theta(cfg: ModelConfig, flags, positions: torch.Tensor):
-    """One ``(cos, sin)`` pair per distinct theta, shared by its layers."""
-    return {th: L.rope_tables(positions, th, cfg.head_dim)
+    """One ``(cos, sin)`` pair per distinct theta, shared by its layers;
+    None for theta 0 (no rope)."""
+    return {th: L.rope_tables(positions, th, cfg.head_dim) if th else None
             for th in dict.fromkeys(flags["theta"])}
 
 
@@ -867,7 +890,7 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
     dev = params.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     Sq = tokens.shape[1]
-    x = embed_lookup(_leaf(sh, params, "embed.table"), tokens, ctx)
+    x = _embed(params, cfg, tokens, sh, ctx)
     positions = torch.arange(Sq, device=dev)[None, :]
     flags = layer_flags(cfg)
     if cfg.family in _SSM_FAMILIES:
@@ -1004,7 +1027,7 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
                         n_patches=n_patches, ctx=ctx)
     if memory is not None:
         cache["memory"].copy_(memory)
-    x = embed_lookup(_leaf(sh, params, "embed.table"), tokens, ctx)
+    x = _embed(params, cfg, tokens, sh, ctx)
     positions = torch.arange(Sq, device=dev)[None, :]
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_layers(params, cfg, x, cache, positions, decode=False,
@@ -1023,6 +1046,97 @@ def prefill(params: LM, cfg: ModelConfig, batch: Dict[str, Any], ctx=None,
     cache["index"] = Sq
     h = _final_norm(params, cfg, x[:, -1:], sh)
     return cache, logits_from_hidden(params, cfg, h, ctx)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, (dict, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {k: _clone_tree(v) for k, v in items}
+        return out if isinstance(tree, dict) else tuple(out.values())
+    return tree
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (dict, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _tensors(v)
+
+
+class PrefillGraphs:
+    """:func:`prefill` of a plain token batch, each prompt shape captured
+    once as a CUDA graph and replayed after.
+
+    A long prompt's prefill is thousands of kernel launches (a MoE layer's
+    is ~160), so a host that enqueues them slower than the card runs them
+    paces the prefill and jitters it; a replay enqueues the whole prefill
+    at once.  The first call of a shape runs :func:`prefill` eagerly on the
+    capture stream (it builds the kernels, the library handles and their
+    workspaces) and then captures it; later calls copy the tokens into the
+    graph's input, replay, and return a cache and logits cloned out of the
+    graph's outputs, so a later replay leaves what the caller holds as it
+    was.  All graphs capture into one memory pool and each keeps its
+    outputs for as long as it lives: a capture reuses only the earlier
+    captures' intermediates, so the graphs replay in any order, one at a
+    time.
+
+    The prefill must read nothing back to the host (a transformer's does
+    not, the dropless MoE's included).  Calls run :func:`prefill` eagerly
+    on a model off CUDA and inside a traced call
+    (:func:`repro_torch.obs.spans.current`), whose per-layer spans a
+    replay would not record."""
+
+    def __init__(self, params: LM, cfg: ModelConfig):
+        self.params, self.cfg = params, cfg
+        self._graphs: Dict[Any, tuple] = {}
+        self._pool = None
+
+    def __call__(self, tokens, max_len: int = 0):
+        from ..obs import spans
+
+        tokens = torch.as_tensor(tokens, device=self.params.device)
+        if tokens.device.type != "cuda" or spans.current() is not None:
+            return prefill(self.params, self.cfg, {"tokens": tokens},
+                           max_len=max_len)
+        key = (tuple(tokens.shape), tokens.dtype, max_len)
+        g = self._graphs.get(key)
+        if g is None:
+            out, self._graphs[key] = self._capture(tokens, max_len)
+            return out
+        graph, static, outs, tally = g
+        static.copy_(tokens)
+        graph.replay()
+        cuda_lib.add_launches(tally)
+        return _clone_tree(outs)
+
+    def _capture(self, tokens: torch.Tensor, max_len: int):
+        from ..compile.capture import capture_stream
+
+        stream = capture_stream(tokens.device)
+        main = torch.cuda.current_stream()
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out = prefill(self.params, self.cfg, {"tokens": tokens},
+                          max_len=max_len)
+            static = tokens.clone()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with cuda_lib.capturing_launches() as tally:
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    outs = prefill(self.params, self.cfg,
+                                   {"tokens": static}, max_len=max_len)
+                finally:
+                    graph.capture_end()
+        main.wait_stream(stream)
+        for t in _tensors(out):         # made on the capture stream
+            t.record_stream(main)
+        return out, (graph, static, outs, dict(tally))
 
 
 @torch.no_grad()
@@ -1049,7 +1163,7 @@ def decode_step(params: LM, cfg: ModelConfig, cache: Dict[str, Any],
             cap *= ctx.size(L.cache_seq_axes(cfg, ctx))
         if idx >= cap:
             raise ValueError(f"the cache is full ({idx} positions)")
-    x = embed_lookup(_leaf(sh, params, "embed.table"), tokens, ctx)
+    x = _embed(params, cfg, tokens, sh, ctx)
     positions = torch.full((1, 1), idx, dtype=torch.int64, device=dev)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_layers(params, cfg, x, cache, positions, decode=True,

@@ -3,8 +3,9 @@ on the profiler's clock.
 
 The compiled driver's runs (``repro.compiled.*``), the train step
 (``repro.train.*``), flash attention's forward and backward
-(``repro.flash.*``) and the serving engine's steps (``repro.engine.*``)
-open spans here; every name starts with ``repro.``.
+(``repro.flash.*``), the MoE layer's stages (``repro.moe.*``) and the
+serving engine's steps (``repro.engine.*``) open spans here; every name
+starts with ``repro.``.
 
 * **The switch.**  Spans are on while a torch profiler is active, and for
   a call made for a :class:`~repro_torch.api.session.Session` built with
@@ -28,7 +29,9 @@ open spans here; every name starts with ``repro.``.
   opened (or the stream it names), and none in a call opened while that
   stream captured a graph.  One anchor a window (synchronise, record an
   event, read ``perf_counter``) places the events on the host's clock.
-  Events are resolved only when :func:`span_trace` is read.
+  Events are resolved only when :func:`span_trace` is read, and so are
+  counters whose values are device tensors (:meth:`Spans.count_later`):
+  the call that counts never waits for the device.
 
 :func:`span_trace` assembles the window into a
 :class:`~repro_torch.obs.trace.RuntimeTrace` whose ``spans`` hold one
@@ -80,6 +83,7 @@ class _Window:
         self.dev: Dict[int, list] = {}        # sid -> [start, end] events
         self.pool: list = []                  # CUDA events to reuse
         self.anchor: Optional[Tuple[float, object]] = None
+        self.later: list = []                 # (t, name, sid, tensor)
 
     def drop_open(self) -> None:
         """Forget the open spans, leaving the profiler's marks closed."""
@@ -95,6 +99,7 @@ class _Window:
         for pair in self.dev.values():
             self.pool.extend(e for e in pair if e is not None)
         self.dev.clear()
+        self.later.clear()
         self.anchor = None
 
 
@@ -193,6 +198,12 @@ class Spans:
         self._w.rec.emit_at(perf_counter(), EV_SPAN_COUNT, name, self.root,
                             int(value))
 
+    def count_later(self, name: str, value) -> None:
+        """:meth:`count` of a 0-d integer tensor, kept as it is and read
+        when the window is (:func:`span_trace`), so the counting call never
+        waits for the device."""
+        self._w.later.append((perf_counter(), name, self.root, value))
+
     def close(self, t: Optional[float] = None) -> None:
         """End the call's own span (and, at the top, any child an error
         left open)."""
@@ -272,6 +283,9 @@ def span_trace(root: Optional[int] = None) -> Optional[RuntimeTrace]:
     w = _window
     if w is None:
         return None
+    for t, name, sid, value in w.later:
+        w.rec.emit_at(t, EV_SPAN_COUNT, name, sid, int(value))
+    w.later.clear()
     snap = w.rec.snapshot()
     if root is not None:
         parent = {e[4]: e[5] for e in snap if e[2] == EV_SPAN_BEGIN}
