@@ -126,14 +126,17 @@ Phases, each printed as one JSON line:
     patches, or 1,000 frames of encoder input and a 16-token prompt),
     and prompt 0 with another memory, whose logits must move; qwen3-moe also a 6-request Poisson stream as in 8;
     each a profiled step as in 9;
-12. training: ``FlashAttentionFn`` (the kernel's forward, the torch-op
-    backward) against autograd through the plain version in float32, at
+12. training: ``FlashAttentionFn`` (the kernel's forward; the backward
+    kernel in bfloat16, the torch-op backward in float32) against
+    autograd through the plain version in float32, at
     qwen3-14b's training shape (B = 2, 40 / 8 heads, S = 1,024, causal),
     a windowed case and llama-3.2-vision's cross shape (512 over 1,600),
     in both types: the forward bit-identical to the no-grad launch, the
     same bits twice, dq, dk and dv within limits derived from the
-    kernel's rounding (``TRAIN_GRAD_F32``), the forward + backward pair
-    timed against SDPA's pair; then ``make_train_step`` on qwen3-14b at
+    kernel's rounding (``TRAIN_GRAD_F32``), one backward launch a bfloat16
+    call and none a float32 one, the forward + backward pair timed beside
+    the kernel forward with the torch-op backward and SDPA's pair; then
+    ``make_train_step`` on qwen3-14b at
     full width cut to 4 of its 40 layers, bf16, seq 1,024, batch 4 in 2
     microbatches, ``overlap="hybrid"``, 8 steps through the prefetching
     data stream (every loss finite, the 8 trained batches' mean loss
@@ -252,7 +255,10 @@ REPLACES = {"tile_matmul": "src/repro/kernels/tile_matmul.py:35",
             "decode_attention": "src/repro/kernels/decode_attention.py:59",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:78",
             "adamw": "none: the reference's update is jnp ops "
-                     "(src/repro/optim/adamw.py)"}
+                     "(src/repro/optim/adamw.py)",
+            "flash_attention_bwd": "none: the reference differentiates "
+                                   "_chunked_attn with jax.grad "
+                                   "(src/repro/models/layers.py)"}
 #: the attention kernels against their plain versions.  The plain versions
 #: keep p in float32 as the Pallas kernels do.  float32: both kernels keep p
 #: in float32 too, and meet tests/test_kernels.py's kernel tolerance.
@@ -1052,7 +1058,7 @@ def expected_launches(cfg, prefills: int, lane_steps: int):
     return {"tile_matmul": 0,
             "flash_attention": (attn + cross + enc) * prefills,
             "decode_attention": (attn + cross) * lane_steps,
-            "ssd_scan": ssm * prefills, "adamw": 0}
+            "ssd_scan": ssm * prefills, "adamw": 0, "flash_attention_bwd": 0}
 
 
 def memory_batch(cfg, n: int, seed: int = 2) -> dict:
@@ -1404,8 +1410,11 @@ def moe_check_phase(smi) -> dict:
 # training: flash attention's gradient, the train step, the trainer
 #
 # the flash Function's gradients against autograd through the plain
-# version in float32 (its inputs upcast).  The backward is float32 torch
-# ops, so dv differs from the reference's only in the order of float32 sums
+# version in float32 (its inputs upcast).  The float32 backward is float32
+# torch ops; the bfloat16 one is the backward kernel, whose products take
+# P and dS as two bfloat16 parts each (their sum within ~2**-16 of the
+# float32 value, far inside the limit below) and sum in float32.  So dv
+# differs from the reference's only in the order of float32 sums
 # (TRAIN_GRAD_F32, normwise: a sum of ~2,000 terms rounds by at most about
 # 2,000 * 2**-24 = 1.2e-4 of its largest term, in practice far less; 1e-4
 # of the tensor's largest entry) and, for bfloat16
@@ -1509,18 +1518,38 @@ def flash_grad_reference(q, k, v, dout, *, causal, window):
     return out.detach(), out_limit, grads, (dq_shift, scale * ptq)
 
 
+def flash_grad_share(got, want, shift, dtype):
+    """``(diff, share)``: a gradient's distance from the float32 reference
+    ``want``, element by element, and the largest share of its limit:
+    TRAIN_GRAD_F32 of the largest entry, for bfloat16 also BF16_ROUND of
+    each entry, and for dq and dk the ``shift`` from
+    :func:`flash_grad_reference` (None for dv)."""
+    diff = (got.float() - want).abs()
+    limit = TRAIN_GRAD_F32 * want.abs().max()
+    if dtype == torch.bfloat16:
+        limit = limit + BF16_ROUND * want.abs()
+    if shift is not None:
+        limit = limit + shift
+    return diff, (diff / limit).max().item()
+
+
 def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
                     timed=False):
-    """``FlashAttentionFn`` (the kernel's forward, the torch-op backward)
-    against autograd through the plain version, in float32 and bfloat16 on
-    the same numpy inputs: the forward bit-identical to the no-grad call
-    and within its limit of the float32 plain version's output, the same
-    bits twice, each gradient within its derived limit; with
-    ``timed``, the forward + backward pair against the plain version's
-    pair and SDPA's (the library call of the pair), in bfloat16."""
+    """``FlashAttentionFn`` (the kernel's forward; the backward kernel for
+    bfloat16, the torch-op backward for float32) against autograd through
+    the plain version, in float32 and bfloat16 on the same numpy inputs:
+    the forward bit-identical to the no-grad call and within its limit of
+    the float32 plain version's output, the same bits twice, each gradient
+    within its derived limit, one backward-kernel launch a bfloat16 call;
+    with ``timed``, the forward + backward pair against the kernel forward
+    with the torch-op backward, the plain version's pair and SDPA's (the
+    library call of the pair), in bfloat16."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import (backward_takes,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.ref import flash_attention_ref
 
     rng = np.random.default_rng(seed)
@@ -1536,12 +1565,17 @@ def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
         with torch.no_grad():
             direct = flash_attention(q, k, v, **kw)
         runs = []
+        bwd0 = launch_counts()["flash_attention_bwd"]
         for _ in range(2):
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             out = flash_attention(*leaves, **kw)
             runs.append((out.detach(), *torch.autograd.grad(out, leaves,
                                                             dout)))
         torch.cuda.synchronize()
+        bwd = launch_counts()["flash_attention_bwd"] - bwd0
+        want_bwd = 2 if backward_takes(dtype, d, "cuda") else 0
+        check(bwd == want_bwd, f"{name} {key}: {bwd} backward-kernel "
+              f"launches in two calls, expected {want_bwd}")
         check(torch.equal(runs[0][0], direct),
               f"{name} {key}: the Function's forward differs from the "
               f"no-grad call")
@@ -1562,13 +1596,7 @@ def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
         del want_out, out_limit, diff
         for what, got, want, shift in zip(("dq", "dk", "dv"), runs[0][1:],
                                           grads, shifts + (None,)):
-            diff = (got.float() - want).abs()
-            limit = TRAIN_GRAD_F32 * want.abs().max()
-            if dtype == torch.bfloat16:
-                limit = limit + BF16_ROUND * want.abs()
-            if shift is not None:
-                limit = limit + shift
-            share = (diff / limit).max().item()
+            diff, share = flash_grad_share(got, want, shift, dtype)
             errs[what] = {"max_abs_err": diff.max().item(),
                           "max_abs": want.abs().max().item(),
                           "tol_share": share}
@@ -1577,6 +1605,8 @@ def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
             check(bool(torch.isfinite(got.float()).all()),
                   f"{name} {key}: {what} is not finite")
         row[key] = errs
+        row.setdefault("backward", {})[key] = ("kernel" if want_bwd
+                                               else "torch ops")
         del runs, grads, shifts
     if timed:
         q, k, v, dout = (torch.from_numpy(a).to(TRAIN_DEVICE, torch.bfloat16)
@@ -1585,6 +1615,11 @@ def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
 
         def pair(fwd):
             return lambda: torch.autograd.grad(fwd(*leaves), leaves, dout)
+
+        def torch_op_pair():
+            with torch.no_grad():
+                out = flash_attention(q, k, v, **kw)
+            return flash_attention_bwd(q, k, v, out, dout, **kw)
 
         if window > 0:
             qpos = torch.arange(Sq, device=TRAIN_DEVICE)[:, None]
@@ -1617,6 +1652,7 @@ def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
                                row["bfloat16"].values()),
             "ms": device_ms(pair(lambda *x: flash_attention(*x, **kw)),
                             reps=10),
+            "torch_op_ms": device_ms(torch_op_pair, reps=3),
             "plain_ms": device_ms(pair(lambda *x: flash_attention_ref(
                 *x, **kw)), reps=3),
             "library_ms": device_ms(pair(lib), reps=10),
@@ -1627,14 +1663,19 @@ def flash_grad_case(name, B, H, KV, Sq, Sk, d, *, causal, window, seed, smi,
     return row
 
 
-def train_flash_grad_phase(smi) -> dict:
-    """qwen3-14b's training shape (B = 2, H = 40, KV = 8, S = 1,024, d =
-    128, causal) in both types, timed; a windowed case; llama-3.2-vision's
+def train_flash_grad_phase(smi) -> tuple:
+    """qwen3-14b's training shapes in both types, timed: the short train
+    cell's microbatch (B = 2, H = 40, KV = 8, S = 1,024, d = 128, causal)
+    and the S = 4,096 cell's (B = 1); a windowed case; llama-3.2-vision's
     cross shape (512 queries over 1,600 patches, non-causal); the trainer's
     shape (the 100m configuration's microbatch: B = 4, H = 12, KV = 4, S =
-    256, d = 64, causal; it trains in float32)."""
+    256, d = 64, causal; it trains in float32).  Returns the two timed
+    rows."""
     main = flash_grad_case("qwen3 train S=1024 causal", 2, 40, 8, 1024,
                            1024, 128, causal=True, window=0, seed=50,
+                           smi=smi, timed=True)
+    long = flash_grad_case("qwen3 train S=4096 causal", 1, 40, 8, 4096,
+                           4096, 128, causal=True, window=0, seed=54,
                            smi=smi, timed=True)
     flash_grad_case("S=1024 causal window=256", 1, 40, 8, 1024, 1024, 128,
                     causal=True, window=256, seed=51, smi=smi)
@@ -1642,7 +1683,7 @@ def train_flash_grad_phase(smi) -> dict:
                     128, causal=False, window=0, seed=52, smi=smi)
     flash_grad_case("trainer 100m S=256 causal (12/4 heads, d=64)", 4, 12, 4,
                     256, 256, 64, causal=True, window=0, seed=53, smi=smi)
-    return main
+    return main, long
 
 
 #: the SSD scan's gradients (``SSDScanFn``: the kernel's forward, the
@@ -1833,7 +1874,7 @@ def ssm_decode_matches_forward_phase(smi) -> None:
         emit(row)
         want = {"tile_matmul": 0, "flash_attention": 2 * uses,
                 "decode_attention": uses, "ssd_scan": 2 * layers,
-                "adamw": 0}
+                "adamw": 0, "flash_attention_bwd": 0}
         check(counts == want, f"{arch}: launches {counts}, expected {want}")
         check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
               f"{arch}: a logit is not finite")
@@ -1977,9 +2018,12 @@ def train_launches(cfg, leaves: int) -> dict:
     """Each kernel's launches in one train step of ``cfg``: every layer's
     SSM block (ssm, hybrid) launches the scan and every attention layer, or
     use of a hybrid's shared block, launches flash attention, once per
-    microbatch in the forward and once in its remat recompute; AdamW
-    launches its norm pass and its update once for each of the ``leaves``
-    and adds the norms' partials once."""
+    microbatch in the forward and once in its remat recompute, and, where
+    the backward kernel takes the configuration's type and head dim, its
+    backward once per microbatch; AdamW launches its norm pass and its
+    update once for each of the ``leaves`` and adds the norms' partials
+    once."""
+    from repro_torch.kernels.flash_attention import backward_takes
     from repro_torch.models.lm import layer_flags
 
     if cfg.family in ("ssm", "hybrid"):
@@ -1987,9 +2031,11 @@ def train_launches(cfg, leaves: int) -> dict:
         attn = sum(layer_flags(cfg).get("use_attn", []))
     else:
         scan, attn = 0, cfg.n_layers
+    bwd = backward_takes(getattr(torch, cfg.dtype), cfg.head_dim, "cuda")
     return {"tile_matmul": 0, "flash_attention": attn * TRAIN_MICRO * 2,
             "decode_attention": 0, "ssd_scan": scan * TRAIN_MICRO * 2,
-            "adamw": 2 * leaves + 1}
+            "adamw": 2 * leaves + 1,
+            "flash_attention_bwd": attn * TRAIN_MICRO if bwd else 0}
 
 
 def train_model_flops(cfg, n_params: int, emb: int):
@@ -2287,6 +2333,8 @@ def train_step_phase(smi, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
            "launches_per_step": launches[0],
            "flash_launches_per_step": launches[0]["flash_attention"],
            "flash_launches": sum(c["flash_attention"] for c in launches),
+           "flash_bwd_launches": sum(c["flash_attention_bwd"]
+                                     for c in launches),
            "scan_launches": sum(c["ssd_scan"] for c in launches),
            "adamw_launches": sum(c["adamw"] for c in launches),
            "adamw": {**adamw_case, "ms": adamw_ms, "plain_ms": adamw_plain_ms,
@@ -2389,6 +2437,7 @@ def trainer_phase(smi) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()["flash_attention"]
+        bwd_launches = launch_counts()["flash_attention_bwd"]
         adamw_launches = launch_counts()["adamw"]
         step_dir = os.path.join(ckpt_dir, f"step_{TRAINER_STEPS:08d}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
@@ -2405,6 +2454,10 @@ def trainer_phase(smi) -> dict:
     want_launches = cfg.n_layers * 2 * 2 * TRAINER_STEPS
     check(launches == want_launches, f"trainer: {launches} flash launches, "
           f"expected {want_launches}")
+    # the backward kernel where it takes the configuration (float32: none)
+    want_bwd = train_launches(cfg, 0)["flash_attention_bwd"] * TRAINER_STEPS
+    check(bwd_launches == want_bwd, f"trainer: {bwd_launches} flash "
+          f"backward launches, expected {want_bwd}")
     # every step's update through the AdamW kernel (float32 leaves)
     leaves = len(list(out["params"].parameters()))
     want_adamw = (2 * leaves + 1) * TRAINER_STEPS
@@ -2426,8 +2479,8 @@ def trainer_phase(smi) -> dict:
            "losses": [(m["step"], m["loss"]) for m in
                       first["metrics"] + out["metrics"]],
            "held_out_loss": [held_before, held_after], "opt": TRAINER_OPT,
-           "flash_launches": launches, "adamw_launches": adamw_launches,
-           "checkpoint_bytes": ckpt_bytes,
+           "flash_launches": launches, "flash_bwd_launches": bwd_launches,
+           "adamw_launches": adamw_launches, "checkpoint_bytes": ckpt_bytes,
            "saves": saves, "wall_s": wall, "card": smi}
     emit(row)
     return row
@@ -3491,7 +3544,7 @@ def serving_mp_phase(cfg, model, n_requests: int, single_row: dict,
         check(got == want, f"child {s['proc']} launched {got}, expected "
               f"{want}")
         for k, v in got.items():
-            by_kernel[k] += v
+            by_kernel[k] = by_kernel.get(k, 0) + v
     return by_kernel
 
 
@@ -3671,7 +3724,7 @@ def sharded_serve_phase(cfg, model, smi) -> dict:
         0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to("cuda")
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": cfg.n_layers * steps, "tile_matmul": 0,
-            "ssd_scan": 0, "adamw": 0}
+            "ssd_scan": 0, "adamw": 0, "flash_attention_bwd": 0}
     toks0, logits0, _, s0 = _greedy(model, cfg, prompts, None, steps)
     rows = {}
     with nccl_world_of_one():
@@ -3845,6 +3898,8 @@ def sharded_train_step_phase(smi, train_row: dict) -> dict:
            "ctx_none_median_step_ms": train_row["median_step_ms"],
            "flash_launches_per_step": launches[0]["flash_attention"],
            "flash_launches": sum(c["flash_attention"] for c in launches),
+           "flash_bwd_launches": sum(c["flash_attention_bwd"]
+                                     for c in launches),
            "adamw_launches": sum(c["adamw"] for c in launches),
            "collectives_per_step": colls[0]["total_count"],
            "collective_bytes_per_step": colls[0]["total_bytes"],
@@ -4032,6 +4087,9 @@ def sharded_two_ranks_phase(smi) -> list:
             check(r["tokens_equal"], f"{what}: greedy tokens differ")
         check(r["launches"]["flash_attention"] == 2 * 2, f"{what}: flash "
               f"launches {r['launches']} (2 layers, forward and remat)")
+        check(r["launches"]["flash_attention_bwd"] == 0, f"{what}: flash "
+              f"backward launches {r['launches']} (float32 takes the "
+              f"torch-op backward)")
     return rows
 
 
@@ -4326,7 +4384,7 @@ def main() -> int:
 
     # training: flash attention's gradient, the train step at full width,
     # the trainer with a preemption and a restart
-    flash_train = train_flash_grad_phase(smi)
+    flash_train, flash_train_long = train_flash_grad_phase(smi)
     ssd_train = train_ssd_grad_phase(smi)
     ssm_decode_matches_forward_phase(smi)
     train_ssm_grad_vs_cpu_phase(smi)
@@ -4339,9 +4397,10 @@ def main() -> int:
     trainer_lr_witness_phase(smi)
     dryrun_phase(dry, sharded_train, smi)
 
-    def line(name, case, launches):
+    def line(name, case, launches, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"{CSRC}/{name}.cu", "replaces": REPLACES[name],
+                "source": f"{CSRC}/{source or name}.cu",
+                "replaces": REPLACES[name],
                 "launches": launches, "max_abs_err": case["max_abs_err"],
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
@@ -4404,10 +4463,33 @@ def main() -> int:
                              "flash_attention", 0) for r in two_ranks)}
     flash = line("flash_attention", flash_main, sum(flash_by_path.values()))
     flash["launches_by_path"] = flash_by_path
-    # the forward + backward pair at qwen3's training shape (bf16)
+    # the forward + backward pair at qwen3's training shape (bf16): the
+    # backward kernel's, the kernel forward with the torch-op backward's
     flash["train_pair"] = {k: flash_train[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "ms", "torch_op_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "forward_ms", "max_abs_err")}
+    # the backward kernel: every bfloat16 train step's backwards (one a
+    # microbatch and attention layer or use), each path counted with the
+    # counts reset just before it; the trainer and the two-rank children
+    # train in float32 and take the torch-op backward.  Its case is the
+    # pair at the S = 4,096 train cell's microbatch, the short cell's
+    # beside it
+    bwd_by_path = {"train_step": train_row["flash_bwd_launches"],
+                   **{f"train_step_{arch}": r["flash_bwd_launches"]
+                      for arch, r in ssm_rows.items()},
+                   "sharded_train_step": sharded_train["flash_bwd_launches"],
+                   "trainer": trainer_row["flash_bwd_launches"],
+                   "sharded_two_ranks": sum(
+                       r["launches"]["flash_attention_bwd"]
+                       for r in two_ranks)}
+    flash_bwd = line("flash_attention_bwd", flash_train_long,
+                     sum(bwd_by_path.values()), source="flash_attention")
+    flash_bwd["launches_by_path"] = bwd_by_path
+    flash_bwd["shape"] = {k: flash_train_long[k] for k in (
+        "B", "H", "KV", "Sq", "Sk", "d", "causal", "window")}
+    flash_bwd["torch_op_ms"] = flash_train_long["torch_op_ms"]
+    flash_bwd["forward_ms"] = flash_train_long["forward_ms"]
+    flash_bwd["train_pair_s1024"] = flash["train_pair"]
     # serving: zamba2-7b's and mamba2-2.7b's batch paths and the sharded
     # serve; training: each SSM train step's 8 steps
     scan_by_path = {"serving": zamba["ssd_scan_launches"],
@@ -4436,7 +4518,7 @@ def main() -> int:
         "leaves", "params", "grad_norm", "kernel_grad_norm", "scale",
         "elements_differ")}
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [gemm, flash, decode, scan, adamw]})
+    emit({"kernels": [gemm, flash, decode, scan, adamw, flash_bwd]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults in the redesigned kernels, held to chip_smoke's limits.
 
-    python3 kernel_faults.py [--kernel flash_attention|tile_matmul|ssd_scan]
+    python3 kernel_faults.py [--kernel flash_attention|flash_attention_bwd|tile_matmul|ssd_scan]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 For each fault a copy of ``src/`` and ``chip_smoke.py`` in a temporary
@@ -17,8 +17,18 @@ failed.  The faults:
   drop the sliding window's oldest key; drop the ragged last key; skip the
   rescale of the output carry on the second key tile; let the keys past
   Sk (the zero fill of the ragged last key tile) into the softmax; apply
-  the causal mask when ``causal`` is false.  Each is written into both of
-  the file's kernels.
+  the causal mask when ``causal`` is false.  Each is written wherever the
+  file has its text (the forward's two kernels, and the backward's mask
+  too); only the forward's cases run.
+* ``flash_attention_bwd`` (the backward kernel in the same file, through
+  chip_smoke's ``flash_grad_case`` at qwen3-14b's short training shape, a
+  ragged window, and non-causal cross shapes at d = 64 and 112; judged by
+  the bfloat16 gradients and every check): drop the diagonal key from dS
+  in both the dK/dV and the dQ kernels; read each row's log-sum-exp from
+  another row; drop the low bfloat16 part of P and dS (one bfloat16
+  rounding of each in the products); drop the last query tile of every
+  dK/dV block; sum only the first query head of each KV group into dK and
+  dV.
 * ``tile_matmul`` (float64, ``C - A B^T`` and ``C - A B``): drop the last
   K split from the cluster's sum; drop the last K slice of every split.
 * ``ssd_scan`` (float32 and bfloat16): skip the carried-state term
@@ -59,6 +69,25 @@ FAULTS = {
         "let keys past Sk in": [("kpos < Sk &&", "kpos < Sk + kBK &&")],
         "causal mask when causal is false": [("(!causal || kpos <= qpos)",
                                               "(kpos <= qpos)")],
+    },
+    "flash_attention_bwd": {
+        "none": [],
+        "drop the diagonal key from dS": [
+            ("dp[x] = p * (dp[x] - d_s[col]);",
+             "dp[x] = q0 + col == kpos ? 0.f : p * (dp[x] - d_s[col]);"),
+            ("dp[x] = p * (dp[x] - d_r[i]);",
+             "dp[x] = row0 + 8 * i == kpos ? 0.f : p * (dp[x] - d_r[i]);")],
+        "read lse from another row": [
+            ("scale_log2 - lse_s[col]", "scale_log2 - lse_s[col ^ 1]"),
+            ("scale_log2 - lse_r[i]", "scale_log2 - lse_r[i ^ 1]")],
+        "drop the low part of P and dS": [
+            ("wgmma_pv<DP>(acc, lo, db);", "")],
+        "drop each dK/dV block's last query tile": [
+            ("(q_end - q_begin + kBQ - 1) / kBQ : 0;",
+             "(q_end - q_begin - 1) / kBQ : 0;")],
+        "sum one head of each KV group": [
+            ("for (int j = 0; j < rep; ++j) {",
+             "for (int j = 0; j < 1; ++j) {")],
     },
     "tile_matmul": {
         "none": [],
@@ -106,6 +135,15 @@ FLASH_CASES = [
     ("encoder S=1000 keys past Sk ignored", 1000, 0, "past",
      dict(H=16, KV=16, d=64, causal=False)),
 ]
+#: flash backward cases: (case, B, H, KV, Sq, Sk, d, causal, window)
+FLASH_GRAD_CASES = [
+    ("qwen3 train S=1024 causal", 2, 40, 8, 1024, 1024, 128, True, 0),
+    ("S=600 window=100 (ragged)", 1, 8, 2, 600, 600, 128, True, 100),
+    ("cross Sq=70 Sk=530 d=64", 1, 8, 2, 70, 530, 64, False, 0),
+    ("cross Sq=530 Sk=70 d=112", 1, 4, 2, 530, 70, 112, False, 0),
+]
+#: the source file of a fault list's kernel, where it is not its own name
+SOURCES = {"flash_attention_bwd": "flash_attention"}
 #: float64 GEMM cases: (M, N, K, mode)
 GEMM_CASES = [(192, 192, 192, "sub_t"), (192, 192, 192, "sub_nn"),
               (200, 136, 72, "sub_t"), (20, 9, 72, "sub_t")]
@@ -129,9 +167,17 @@ def child(kernel: str) -> None:
     failures = []
     chip_smoke.check = lambda ok, what: ok or failures.append(what)
     chip_smoke.emit = lambda obj: None
-    cuda_lib.build([kernel])
+    cuda_lib.build([SOURCES.get(kernel, kernel)])
     out = {}
-    if kernel == "flash_attention":
+    if kernel == "flash_attention_bwd":
+        for seed, (case, *shape, causal, window) in enumerate(
+                FLASH_GRAD_CASES):
+            row = chip_smoke.flash_grad_case(case, *shape, causal=causal,
+                                             window=window, seed=100 + seed,
+                                             smi="")
+            out[case] = {"bfloat16": max(row["bfloat16"][g]["tol_share"]
+                                         for g in ("dq", "dk", "dv"))}
+    elif kernel == "flash_attention":
         for seed, (case, S, window, needle, kw) in enumerate(FLASH_CASES):
             row = chip_smoke.flash_case(case, S, window, seed=100 + seed,
                                         needle=needle, timed=False, **kw)
@@ -161,12 +207,13 @@ def run_fault(kernel: str, fault: str, edits) -> dict:
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
         shutil.copy(ROOT / "kernel_faults.py", copy / "kernel_faults.py")
-        src = copy / CSRC / f"{kernel}.cu"
+        name = SOURCES.get(kernel, kernel)
+        src = copy / CSRC / f"{name}.cu"
         text = src.read_text()
         for old, new in edits:
             if old not in text:
                 raise SystemExit(f"fault {fault!r}: {old!r} is not in "
-                                 f"{CSRC / kernel}.cu")
+                                 f"{CSRC / name}.cu")
             text = text.replace(old, new)
         src.write_text(text)
         run = subprocess.run([sys.executable, "kernel_faults.py", "--child",

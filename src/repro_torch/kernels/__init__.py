@@ -8,8 +8,9 @@ their launch counts.
 * :mod:`~repro_torch.kernels.tile_matmul` — the wrapper of the tile GEMM
   with epilogue that carries the factorizations' trailing update
   (``csrc/tile_matmul.cu``);
-* :mod:`~repro_torch.kernels.flash_attention` — prefill attention
-  (``csrc/flash_attention.cu``);
+* :mod:`~repro_torch.kernels.flash_attention` — prefill attention and
+  training's attention gradient (``csrc/flash_attention.cu``: the forward,
+  and the backward counted as ``flash_attention_bwd``);
 * :mod:`~repro_torch.kernels.decode_attention` — the attention of a decode
   step over the KV cache (``csrc/decode_attention.cu``);
 * :mod:`~repro_torch.kernels.ssd_scan` — the Mamba2 SSD chunk scan of an
@@ -28,6 +29,7 @@ from typing import Dict
 from . import ops, ref
 from .adamw import launches as _adamw_launches
 from .decode_attention import launches as _decode_attention_launches
+from .flash_attention import bwd_launches as _flash_attention_bwd_launches
 from .flash_attention import launches as _flash_attention_launches
 from .ssd_scan import launches as _ssd_scan_launches
 from .tile_matmul import launches as _tile_matmul_launches
@@ -37,7 +39,8 @@ COUNTERS = {c.name: c for c in (_tile_matmul_launches,
                                 _flash_attention_launches,
                                 _decode_attention_launches,
                                 _ssd_scan_launches,
-                                _adamw_launches)}
+                                _adamw_launches,
+                                _flash_attention_bwd_launches)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -88,7 +88,50 @@
 // tile skipping and fixed-order reductions are as above.  No full-size
 // model serves float32 on the card.
 //
-// The launch goes on the caller's stream, allocates nothing and returns
+// Training's forward (bfloat16, d <= 128, called where the backward will
+// run the kernel below) also stores each query row's log-sum-exp in log2
+// units, lse2 = m + log2(l), float32 (B, H, ld), ld a multiple of 64, from
+// a second instantiation of the same kernel (the template flag LSE);
+// serving's instantiation is the code above, unchanged, and both give the
+// same bits.
+//
+// Backward (bfloat16, d <= 128; replaces no Pallas kernel: the reference
+// differentiates layers._chunked_attn with jax.grad).  Four launches:
+//   dot   D_i = rowsum(dO_i * O_i) in float32, one warp a row;
+//   dkdv  one block per (64 keys, query head, batch): K and V of its keys
+//         are loaded once, then Q and dO of every 64-query tile its keys
+//         can see (causal: none before the first key; window: none a
+//         window past the last) stream through a 2-stage TMA ring with
+//         the tile's lse2 and D.  Per tile, on wgmma: S^T = K Q^T and
+//         dP^T = V dO^T (both operands K-major in shared memory, float32
+//         accumulators); then in registers P^T = exp2(S^T s log2e - lse2)
+//         (masked: 0) and dS^T = P^T (dP^T - D); then dV += P^T dO and
+//         dK += dS^T Q with P^T and dS^T as register A operands and dO, Q
+//         read transposed.  dK and dV stay float32 in registers across
+//         the tiles and are stored as the head's float32 partials;
+//   sum   dK and dV of each KV head: its group's partials summed in head
+//         order, rounded to bfloat16 once;
+//   dq    one block per (64 queries, head, batch) over the key tiles its
+//         queries see: S and dP again, dS, and dQ += dS K, K transposed;
+//         rounded once.
+// A block is one warpgroup that issues its own TMA loads, and two blocks
+// share an SM, so each holds up to 255 registers a thread (dK and dV take
+// 128 at d = 128, the four split operands 64).  One block per query head,
+// not per KV group, keeps the causal mask's heaviest block (the first keys
+// see every query) a small share of the grid's work: at qwen3-14b's
+// training shape (B 2, S 1,024, 40 / 8 heads) a group's block would hold
+// 80 of the 41 tiles an SM does on average.
+// No atomics: every sum runs in a fixed order, so two runs give the same
+// bits.  P and dS are float32; a bfloat16 operand would round each by up
+// to 2^-8, about what the gradients' limits allow for their own final
+// rounding (chip_smoke.TRAIN_GRAD_F32), so each is split into a bfloat16
+// high part and the bfloat16 of the remainder, x = hi + lo to ~2^-16, and
+// the three products that take them run twice.  S and dP multiply the
+// bfloat16 inputs as they are.  Work: 10 products of a kept pair a head
+// dim (4 would do, keeping P): at qwen3-14b's training shapes it is bound
+// by operations, 2 * 10 * pairs * d * H flops at 989 TFLOP/s.
+//
+// The launches go on the caller's stream, allocate nothing and return
 // cudaGetLastError() (or minus the CUresult of a refused tensor map), so a
 // refused launch reaches the caller.
 
@@ -543,7 +586,9 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
   else wgmma_rs_n256(o, a, db);
 }
 
-template <int DP>
+// LSE: also store each row's log2-sum-exp at lse[(b H + h) lse_ld + row]
+// (rows past Sq in the last tile get 0); without it lse is not read
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads, Shape<DP>::kMinBlocks)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -551,7 +596,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ out, int H, int rep,
                           int Sq, int Sk, int d, int causal, int window,
                           float scale_log2,
-                          int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+                          int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                          float* __restrict__ lse, int lse_ld) {
   using C = Shape<DP>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that
@@ -728,6 +774,17 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       *reinterpret_cast<__nv_bfloat162*>(op + qpos * o_ss + col) =
           __floats2bfloat162_rn(o[x] * inv[i], o[x + 1] * inv[i]);
   }
+  if constexpr (LSE) {
+    // the 4 lanes of a row hold the same m and l; one stores
+    if (t4 == 0) {
+      float* lp = lse + int64_t(b * H + h) * lse_ld;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qpos = row0 + 8 * i;
+        lp[qpos] = qpos < Sq ? m_run[i] + log2f(l_run[i]) : 0.f;
+      }
+    }
+  }
 }
 
 // a 4-d map over (d, S, heads, B) of a bf16 tensor with the given element
@@ -752,25 +809,26 @@ int encode(CUtensorMap* map, const void* base, int d, int S, int heads, int B,
   return r == CUDA_SUCCESS ? 0 : -int(r);
 }
 
-template <int DP>
+template <int DP, bool LSE>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            void* out, int B, int H, int rep, int Sq, int Sk, int d,
            int causal, int window, float scale_log2, const int64_t* ost,
-           cudaStream_t stream) {
+           float* lse, int lse_ld, cudaStream_t stream) {
   static std::atomic<uint64_t> done{0};
-  auto kernel = flash_attention_tc_kernel<DP>;
+  auto kernel = flash_attention_tc_kernel<DP, LSE>;
   const cudaError_t err = allow_smem(kernel, Shape<DP>::kSmem, done);
   if (err != cudaSuccess) return int(err);
   const dim3 grid(((Sq + kBQ - 1) / kBQ) * H, 1, B);
   kernel<<<grid, kThreads, Shape<DP>::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, rep, Sq, Sk, d,
-      causal, window, scale_log2, ost[0], ost[1], ost[2]);
+      causal, window, scale_log2, ost[0], ost[1], ost[2], lse, lse_ld);
   return 0;
 }
 
 int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
                int H, int KV, int Sq, int Sk, int d, int causal,
-               int window, float scale, const int64_t* st, cudaStream_t s) {
+               int window, float scale, const int64_t* st, float* lse,
+               int lse_ld, cudaStream_t s) {
   // TMA reads 16-byte-aligned bases and strides (the wrapper checks first)
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16) return int(cudaErrorInvalidValue);
@@ -784,10 +842,531 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
   if (err != 0) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
   const int rep = H / KV;
-  if (d <= 64) return launch<64>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, s);
-  if (d <= 128) return launch<128>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, s);
-  if (d <= 256) return launch<256>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, s);
+  if (lse == nullptr) {
+    if (d <= 64) return launch<64, false>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, nullptr, 0, s);
+    if (d <= 128) return launch<128, false>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, nullptr, 0, s);
+    if (d <= 256) return launch<256, false>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, nullptr, 0, s);
+  } else {
+    // the backward kernel takes d <= 128: only those store an lse
+    if (d <= 64) return launch<64, true>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, lse, lse_ld, s);
+    if (d <= 128) return launch<128, true>(tq, tk, tv, out, B, H, rep, Sq, Sk, d, causal, window, scale_log2, st + 9, lse, lse_ld, s);
+  }
   return int(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------------------
+// the backward (bfloat16, DP = 64 or 128)
+
+// a block is one warpgroup that issues its own TMA loads (thread 0); two
+// blocks share an SM, so each may hold 255 registers a thread
+constexpr int kBwdStages = 2;
+constexpr int kVecBytes = 2 * kBQ * 4;               // a tile's lse2 and D
+
+// two resident 64-row tiles (dkdv: K and V; dq: Q and dO), a ring of
+// stages of two tiles (dkdv: Q and dO; dq: K and V), each stage's lse2 and
+// D (dkdv), the barriers
+template <int DP>
+struct BwdShape {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  static constexpr int kStageOff = 2 * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kVecOff = kStageOff + kBwdStages * kStageBytes;
+  static constexpr int kBarOffset = kVecOff + kBwdStages * kVecBytes;
+  static constexpr int kSmem = kBarOffset + 8 * (1 + kBwdStages) + 1024;
+};
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Sk,
+                                        int causal, int window) {
+  return qpos < Sq && kpos < Sk && (!causal || kpos <= qpos) &&
+         (window <= 0 || qpos - kpos < window);
+}
+
+// no (query, key) pair of the 64 x 64 tiles at q0 and k0 is visible
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int Sq, int Sk,
+                                            int causal, int window) {
+  return q0 >= Sq || k0 >= Sk || (causal && k0 > q0 + kBQ - 1) ||
+         (window > 0 && q0 - (k0 + kBK - 1) >= window);
+}
+
+// x = hi + lo, each bfloat16, for the pair (x0, x1): a register A operand's
+// word from each part
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4][2]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) asm volatile("" : "+r"(r[i][j][c]) :: "memory");
+}
+
+// the 32 accumulator fragments of a 64 x 64 product (rows of the warpgroup,
+// columns of the tile) as the register A operands of the next product,
+// split: a[kk][r][0] high parts, a[kk][r][1] low parts
+__device__ __forceinline__ void split_operand(const float (&x)[32],
+                                              uint32_t (&a)[4][4][2]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[kk][r][0],
+                 a[kk][r][1]);
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv_split(float (&acc)[DP / 2],
+                                               const uint32_t (&a)[4][2],
+                                               uint64_t db) {
+  const uint32_t hi[4] = {a[0][0], a[1][0], a[2][0], a[3][0]};
+  const uint32_t lo[4] = {a[0][1], a[1][1], a[2][1], a[3][1]};
+  wgmma_pv<DP>(acc, hi, db);
+  wgmma_pv<DP>(acc, lo, db);
+}
+
+// S (+)= A . B^T over the head dim, both 64-row tiles K-major in shared
+// memory: the forward's Q . K^T
+template <int DP>
+__device__ __forceinline__ void wgmma_rows(float (&d)[32], uint32_t a_addr,
+                                           uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+    wgmma_ss_n64(d, sw128_desc(a_addr + off, 16, 1024),
+                 sw128_desc(b_addr + off, 16, 1024), kk > 0);
+  }
+}
+
+// the MN-major descriptor of keys or queries 16 kk .. 16 kk + 15 of a
+// 64-row tile read transposed (as the forward reads V)
+__device__ __forceinline__ uint64_t tdesc(uint32_t addr, int kk) {
+  return sw128_desc(addr + kk * 16 * 128, kPanelBytes, 1024);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// D = rowsum(dO * O) in float32, rows < ld of each (b, h); 0 past Sq
+__global__ void __launch_bounds__(256)
+flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ dout,
+                     const __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ dsum, int H, int Sq, int ld, int d,
+                     int64_t rows, int64_t do_sb, int64_t do_sh,
+                     int64_t do_ss, int64_t o_sb, int64_t o_sh,
+                     int64_t o_ss) {
+  const int64_t row = int64_t(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int i = int(row % ld);
+  const int bh = int(row / ld);
+  const int h = bh % H, b = bh / H;
+  float acc = 0.f;
+  if (i < Sq) {
+    const __nv_bfloat16* a = dout + b * do_sb + h * do_sh + i * do_ss;
+    const __nv_bfloat16* o = out + b * o_sb + h * o_sh + i * o_ss;
+    for (int c = 2 * lane; c < d; c += 64) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a + c));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(o + c));
+      acc += x.x * y.x + x.y * y.y;
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) dsum[row] = acc;
+}
+
+// dK and dV of one query head: fp32 partials (B, H, Sk, d), dK already
+// scaled, summed over the KV group's heads by flash_bwd_sum_kernel.  One
+// block per (64 keys, head, batch), blocks in key order, so under the
+// causal mask the first (heaviest) key tiles start first.  The block walks
+// the 64-query tiles that see one of its keys.
+template <int DP>
+__global__ void __launch_bounds__(kConsumers, 2)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum,
+                      float* __restrict__ dk_part, float* __restrict__ dv_part,
+                      int H, int KV, int Sq, int Sk, int d, int causal,
+                      int window, int ld, float scale, float scale_log2) {
+  using C = BwdShape<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+
+  const int h = int(blockIdx.x) % H;
+  const int k0 = (int(blockIdx.x) / H) * kBK;
+  const int b = blockIdx.z;
+  const int g = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // the query tiles that see a key of this block
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(Sq, k0 + kBK - 1 + window) : Sq;
+  const int n_it = q_end > q_begin ? (q_end - q_begin + kBQ - 1) / kBQ : 0;
+  const int64_t row = int64_t(b * H + h) * ld;
+
+  // stage s of tile t: Q and dO, lse2 and D of queries q_begin + 64 t
+  const CUtensorMap* mq = &tq;
+  const CUtensorMap* mdo = &tdo;
+  auto load = [=](int t) {
+    const int s = t % kBwdStages;
+    const int q0 = q_begin + t * kBQ;
+    unsigned char* qs = smem + C::kStageOff + s * C::kStageBytes;
+    unsigned char* vec = smem + C::kVecOff + s * kVecBytes;
+    hopper::mbar_expect_tx(&full[s], 2 * C::kTileBytes + kVecBytes);
+    for (int p = 0; p < C::kPanels; ++p) {
+      hopper::tma_load_4d(qs + p * kPanelBytes, mq, &full[s], p * kPanel,
+                          q0, h, b);
+      hopper::tma_load_4d(qs + C::kTileBytes + p * kPanelBytes, mdo,
+                          &full[s], p * kPanel, q0, h, b);
+    }
+    hopper::bulk_load(vec, lse + row + q0, kBQ * 4, &full[s]);
+    hopper::bulk_load(vec + kBQ * 4, dsum + row + q0, kBQ * 4, &full[s]);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < 1 + kBwdStages; ++s) hopper::mbar_init(&bars[s], 1);
+    hopper::fence_mbar_init();
+    hopper::mbar_expect_tx(kv_full, 2 * C::kTileBytes);
+    for (int p = 0; p < C::kPanels; ++p) {
+      hopper::tma_load_4d(smem + p * kPanelBytes, &tk, kv_full, p * kPanel,
+                          k0, g, b);
+      hopper::tma_load_4d(smem + C::kTileBytes + p * kPanelBytes, &tv,
+                          kv_full, p * kPanel, k0, g, b);
+    }
+    for (int t = 0; t < min(n_it, kBwdStages); ++t) load(t);
+  }
+  __syncthreads();
+
+  // the keys k0 .. k0 + 63 are the rows of S^T: a lane holds rows row0 and
+  // row0 + 8 and query columns 8j + 2 t4 + {0, 1}
+  const int t4 = lane & 3;
+  const int row0 = k0 + 16 * warp + (lane >> 2);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t k_addr = base;
+  const uint32_t v_addr = base + C::kTileBytes;
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int t = 0; t < n_it; ++t) {
+    const int s = t % kBwdStages;
+    const int q0 = q_begin + t * kBQ;
+    const uint32_t q_addr = base + C::kStageOff + s * C::kStageBytes;
+    const uint32_t do_addr = q_addr + C::kTileBytes;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + C::kVecOff + s * kVecBytes);
+    const float* d_s = lse_s + kBQ;
+    hopper::mbar_wait(&full[s], (t / kBwdStages) & 1);
+    if (!tile_masked(q0, k0, Sq, Sk, causal, window)) {
+      float sc[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+      pin(sc);
+      pin(dp);
+      wgmma_fence();
+      wgmma_rows<DP>(sc, k_addr, q_addr);       // S^T = K Q^T
+      wgmma_rows<DP>(dp, v_addr, do_addr);      // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+      pin(dp);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int kpos = row0 + 8 * ((x >> 1) & 1);
+        const int col = 8 * (x >> 2) + 2 * t4 + (x & 1);
+        const bool ok = visible(q0 + col, kpos, Sq, Sk, causal, window);
+        const float p = ok ? exp2f(sc[x] * scale_log2 - lse_s[col]) : 0.f;
+        sc[x] = p;
+        dp[x] = p * (dp[x] - d_s[col]);
+      }
+      uint32_t pa[4][4][2], sa[4][4][2];
+      split_operand(sc, pa);
+      split_operand(dp, sa);
+      pin(pa);
+      pin(sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        wgmma_pv_split<DP>(dv_acc, pa[kk], tdesc(do_addr, kk));  // P^T dO
+        wgmma_pv_split<DP>(dk_acc, sa[kk], tdesc(q_addr, kk));   // dS^T Q
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dk_acc);
+      pin(dv_acc);
+    }
+    if (t + kBwdStages < n_it) {
+      // every thread is done with stage s: refill it
+      __syncthreads();
+      if (tid == 0) {
+        hopper::fence_proxy_async();
+        load(t + kBwdStages);
+      }
+    }
+  }
+
+  float* kp = dk_part + (int64_t(b * H + h) * Sk) * d;
+  float* vp = dv_part + (int64_t(b * H + h) * Sk) * d;
+#pragma unroll
+  for (int x = 0; x < DP / 2; x += 2) {
+    const int kpos = row0 + 8 * ((x >> 1) & 1);
+    const int col = 8 * (x >> 2) + 2 * t4;
+    if (kpos < Sk && col < d) {
+      *reinterpret_cast<float2*>(kp + int64_t(kpos) * d + col) =
+          make_float2(dk_acc[x] * scale, dk_acc[x + 1] * scale);
+      *reinterpret_cast<float2*>(vp + int64_t(kpos) * d + col) =
+          make_float2(dv_acc[x], dv_acc[x + 1]);
+    }
+  }
+}
+
+// dK and dV: the KV group's heads' partials summed in head order and
+// rounded to bfloat16 once; two columns a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ dk_part,
+                     const float* __restrict__ dv_part,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int H, int KV, int Sk,
+                     int d, int64_t pairs, int64_t dk_sb, int64_t dk_sh,
+                     int64_t dk_ss, int64_t dv_sb, int64_t dv_sh,
+                     int64_t dv_ss) {
+  const int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= pairs) return;
+  const int half = d / 2;
+  const int col = int(i % half) * 2;
+  const int64_t r = i / half;                   // (b * KV + g) * Sk + kpos
+  const int kpos = int(r % Sk);
+  const int g = int((r / Sk) % KV);
+  const int b = int(r / (int64_t(Sk) * KV));
+  const int rep = H / KV;
+  float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
+  for (int j = 0; j < rep; ++j) {
+    const int64_t off = ((int64_t(b * H + g * rep + j) * Sk) + kpos) * d + col;
+    const float2 a = *reinterpret_cast<const float2*>(dk_part + off);
+    const float2 c = *reinterpret_cast<const float2*>(dv_part + off);
+    sk.x += a.x;
+    sk.y += a.y;
+    sv.x += c.x;
+    sv.y += c.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dk + b * dk_sb + g * dk_sh +
+                                     kpos * dk_ss + col) =
+      __floats2bfloat162_rn(sk.x, sk.y);
+  *reinterpret_cast<__nv_bfloat162*>(dv + b * dv_sb + g * dv_sh +
+                                     kpos * dv_ss + col) =
+      __floats2bfloat162_rn(sv.x, sv.y);
+}
+
+// dQ: one block per (64 queries, head, batch) over the key tiles its
+// queries see; under the causal mask every head's last (heaviest) query
+// tiles first, as the forward
+template <int DP>
+__global__ void __launch_bounds__(kConsumers, 2)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dq, int H, int KV, int Sq,
+                    int Sk, int d, int causal, int window, int ld,
+                    float scale, float scale_log2, int64_t dq_sb,
+                    int64_t dq_sh, int64_t dq_ss) {
+  using C = BwdShape<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+
+  const int n_q = (Sq + kBQ - 1) / kBQ;
+  const int tile = int(blockIdx.x) / H;
+  const int q0 = (causal ? n_q - 1 - tile : tile) * kBQ;
+  const int h = int(blockIdx.x) % H;
+  const int b = blockIdx.z;
+  const int g = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // the key tiles that hold a key some query of this block sees
+  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
+  int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  kv_begin -= kv_begin % kBK;
+  const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
+
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  auto load = [=](int t) {
+    const int s = t % kBwdStages;
+    unsigned char* ks = smem + C::kStageOff + s * C::kStageBytes;
+    const int kt0 = kv_begin + t * kBK;
+    hopper::mbar_expect_tx(&full[s], 2 * C::kTileBytes);
+    for (int p = 0; p < C::kPanels; ++p) {
+      hopper::tma_load_4d(ks + p * kPanelBytes, mk, &full[s], p * kPanel,
+                          kt0, g, b);
+      hopper::tma_load_4d(ks + C::kTileBytes + p * kPanelBytes, mv,
+                          &full[s], p * kPanel, kt0, g, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < 1 + kBwdStages; ++s) hopper::mbar_init(&bars[s], 1);
+    hopper::fence_mbar_init();
+    hopper::mbar_expect_tx(q_full, 2 * C::kTileBytes);
+    for (int p = 0; p < C::kPanels; ++p) {
+      hopper::tma_load_4d(smem + p * kPanelBytes, &tq, q_full, p * kPanel, q0,
+                          h, b);
+      hopper::tma_load_4d(smem + C::kTileBytes + p * kPanelBytes, &tdo,
+                          q_full, p * kPanel, q0, h, b);
+    }
+    for (int t = 0; t < min(n_tiles, kBwdStages); ++t) load(t);
+  }
+  __syncthreads();
+
+  // the forward's fragment layout: rows row0 and row0 + 8 of the tile
+  const int t4 = lane & 3;
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t q_addr = base;
+  const uint32_t do_addr = base + C::kTileBytes;
+  // rows up to q0 + 63 lie inside ld
+  const float* lp = lse + int64_t(b * H + h) * ld;
+  const float* dp_row = dsum + int64_t(b * H + h) * ld;
+  const float lse_r[2] = {lp[row0], lp[row0 + 8]};
+  const float d_r[2] = {dp_row[row0], dp_row[row0 + 8]};
+  float dq_acc[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dq_acc[x] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kBwdStages;
+    const int kt0 = kv_begin + t * kBK;
+    const uint32_t k_addr = base + C::kStageOff + s * C::kStageBytes;
+    const uint32_t v_addr = k_addr + C::kTileBytes;
+    hopper::mbar_wait(&full[s], (t / kBwdStages) & 1);
+    if (!tile_masked(q0, kt0, Sq, Sk, causal, window)) {
+      float sc[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+      pin(sc);
+      pin(dp);
+      wgmma_fence();
+      wgmma_rows<DP>(sc, q_addr, k_addr);       // S = Q K^T
+      wgmma_rows<DP>(dp, do_addr, v_addr);      // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+      pin(dp);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1;
+        const int kpos = kt0 + 8 * (x >> 2) + 2 * t4 + (x & 1);
+        const bool ok = visible(row0 + 8 * i, kpos, Sq, Sk, causal, window);
+        const float p = ok ? exp2f(sc[x] * scale_log2 - lse_r[i]) : 0.f;
+        dp[x] = p * (dp[x] - d_r[i]);
+      }
+      uint32_t sa[4][4][2];
+      split_operand(dp, sa);
+      pin(sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_pv_split<DP>(dq_acc, sa[kk], tdesc(k_addr, kk));  // dS K
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dq_acc);
+    }
+    if (t + kBwdStages < n_tiles) {
+      __syncthreads();
+      if (tid == 0) {
+        hopper::fence_proxy_async();
+        load(t + kBwdStages);
+      }
+    }
+  }
+
+  __nv_bfloat16* qp = dq + b * dq_sb + h * dq_sh;
+#pragma unroll
+  for (int x = 0; x < DP / 2; x += 2) {
+    const int qpos = row0 + 8 * ((x >> 1) & 1);
+    const int col = 8 * (x >> 2) + 2 * t4;
+    if (qpos < Sq && col < d)
+      *reinterpret_cast<__nv_bfloat162*>(qp + qpos * dq_ss + col) =
+          __floats2bfloat162_rn(dq_acc[x] * scale, dq_acc[x + 1] * scale);
+  }
+}
+
+// st: (b, head, position) strides of q, k, v, out, dout, dq, dk and dv;
+// part: float32 scratch of 2 * B * H * Sk * d (the heads' dK and dV)
+template <int DP>
+int launch_bwd(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, const CUtensorMap& tdo,
+               const void* out, const void* dout, const float* lse,
+               float* dsum, float* part, void* dq, void* dk, void* dv, int B,
+               int H, int KV, int Sq, int Sk, int d, int causal, int window,
+               int ld, const int64_t* st, cudaStream_t stream) {
+  static std::atomic<uint64_t> done_kv{0}, done_q{0};
+  auto kv_kernel = flash_bwd_dkdv_kernel<DP>;
+  auto q_kernel = flash_bwd_dq_kernel<DP>;
+  cudaError_t err = allow_smem(kv_kernel, BwdShape<DP>::kSmem, done_kv);
+  if (err == cudaSuccess)
+    err = allow_smem(q_kernel, BwdShape<DP>::kSmem, done_q);
+  if (err != cudaSuccess) return int(err);
+  const float scale = 1.f / sqrtf(float(d));
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int64_t rows = int64_t(B) * H * ld;
+  flash_bwd_dot_kernel<<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const __nv_bfloat16*>(out), dsum, H, Sq, ld, d, rows,
+      st[12], st[13], st[14], st[9], st[10], st[11]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  float* dk_part = part;
+  float* dv_part = part + int64_t(B) * H * Sk * d;
+  const dim3 kv_grid(((Sk + kBK - 1) / kBK) * H, 1, B);
+  kv_kernel<<<kv_grid, kConsumers, BwdShape<DP>::kSmem, stream>>>(
+      tq, tk, tv, tdo, lse, dsum, dk_part, dv_part, H, KV, Sq, Sk, d, causal,
+      window, ld, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int64_t pairs = int64_t(B) * KV * Sk * (d / 2);
+  flash_bwd_sum_kernel<<<unsigned((pairs + 255) / 256), 256, 0, stream>>>(
+      dk_part, dv_part, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, KV, Sk, d, pairs, st[18], st[19],
+      st[20], st[21], st[22], st[23]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const dim3 q_grid(((Sq + kBQ - 1) / kBQ) * H, 1, B);
+  q_kernel<<<q_grid, kConsumers, BwdShape<DP>::kSmem, stream>>>(
+      tq, tk, tv, tdo, lse, dsum, static_cast<__nv_bfloat16*>(dq), H, KV,
+      Sq, Sk, d, causal, window, ld, scale, scale_log2, st[15], st[16],
+      st[17]);
+  return 0;
 }
 
 }  // namespace tc
@@ -797,16 +1376,18 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 // dtype: 1 = float32, 2 = bfloat16 (tile_matmul's codes).  Sq and Sk are
 // the query and key lengths; they differ only when causal is 0.  Strides
 // are in elements, (batch, head, position) for q, k, v and out in that order; the
-// head dimension is contiguous in all four.  Returns 0 when the launch was
-// accepted, a cudaError_t as a positive int, or minus the CUresult of a
-// tensor map the driver refused.
+// head dimension is contiguous in all four.  lse: null, or (bfloat16, d <=
+// 128) a float32 (B, H, lse_ld) buffer, lse_ld >= Sq a multiple of 64,
+// for each row's log2-sum-exp (the backward's input).  Returns 0 when the
+// launch was accepted, a cudaError_t as a positive int, or minus the
+// CUresult of a tensor map the driver refused.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
     int H, int KV, int Sq, int Sk, int d, int causal, int window,
     int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
-    int64_t o_ss, void* stream) {
+    int64_t o_ss, float* lse, int lse_ld, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
       d <= 0 || (causal && Sq != Sk))
     return int(cudaErrorInvalidValue);
@@ -817,15 +1398,54 @@ extern "C" int flash_attention_launch(
   int err;
   switch (dtype) {
     case 1:
+      if (lse != nullptr) return int(cudaErrorInvalidValue);
       err = f32::dispatch_d(q, k, v, out, B, H, H / KV, Sq, Sk, d, causal, window, scale, st, s);
       break;
     case 2:
       if (d % 8 != 0) return int(cudaErrorInvalidValue);
-      err = tc::dispatch_d(q, k, v, out, B, H, KV, Sq, Sk, d, causal, window, scale, st, s);
+      if (lse != nullptr && (lse_ld < Sq || lse_ld % kBQ != 0))
+        return int(cudaErrorInvalidValue);
+      err = tc::dispatch_d(q, k, v, out, B, H, KV, Sq, Sk, d, causal, window, scale, st, lse, lse_ld, s);
       break;
     default:
       return int(cudaErrorInvalidValue);
   }
+  if (err != 0) return err;
+  return int(cudaGetLastError());
+}
+
+// The gradient of a bfloat16 flash_attention call at the forward's out and
+// lse (lse_ld as there) for the output gradient dout: dq (B, H, Sq, d), dk
+// and dv (B, KV, Sk, d), bfloat16.  dsum is float32 scratch of B * H *
+// lse_ld.  st: 24 strides in elements, (batch, head, position) of q, k, v,
+// out, dout, dq, dk and dv in that order, the head dimension contiguous in
+// all; q, k, v and dout are read by TMA (16-byte aligned bases and
+// strides).  d <= 128 and a multiple of 8.  Returns as
+// flash_attention_launch.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* dsum, float* part, void* dq,
+    void* dk, void* dv, int B, int H, int KV, int Sq, int Sk, int d,
+    int causal, int window, int lse_ld, const int64_t* st, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
+      d <= 0 || d > 128 || d % 8 != 0 || (causal && Sq != Sk) ||
+      lse_ld < Sq || lse_ld % kBQ != 0)
+    return int(cudaErrorInvalidValue);
+  for (const void* p : {q, k, v, dout})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return int(cudaErrorInvalidValue);
+  for (int i = 0; i < 24; ++i)
+    if (st[i] % 8) return int(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = tc::encode(&tq, q, d, Sq, H, B, st[0], st[1], st[2]);
+  if (err == 0) err = tc::encode(&tk, k, d, Sk, KV, B, st[3], st[4], st[5]);
+  if (err == 0) err = tc::encode(&tv, v, d, Sk, KV, B, st[6], st[7], st[8]);
+  if (err == 0) err = tc::encode(&tdo, dout, d, Sq, H, B, st[12], st[13], st[14]);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 64)
+    err = tc::launch_bwd<64>(tq, tk, tv, tdo, out, dout, lse, dsum, part, dq, dk, dv, B, H, KV, Sq, Sk, d, causal, window, lse_ld, st, s);
+  else
+    err = tc::launch_bwd<128>(tq, tk, tv, tdo, out, dout, lse, dsum, part, dq, dk, dv, B, H, KV, Sq, Sk, d, causal, window, lse_ld, st, s);
   if (err != 0) return err;
   return int(cudaGetLastError());
 }

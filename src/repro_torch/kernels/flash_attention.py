@@ -23,16 +23,30 @@ without the causal mask (cross-attention: ``Sq`` prompt positions over
 ``NotImplementedError`` (ROADMAP Queue B item 3).
 
 Gradients: every call goes through :class:`FlashAttentionFn`, whose
-forward is the launch (or plain version) and whose backward is
-:func:`flash_attention_bwd`, written in torch ops; autograd records it only
-when grad mode is on and q, k or v requires grad, so serving's calls carry
-no history.  The reference has no backward kernel either: its training
-differentiates ``layers._chunked_attn`` with ``jax.grad``.  Inside a
-traced top-level call (a train step or an engine step under a profiler,
+forward is the launch (or plain version); autograd records it only when
+grad mode is on and q, k or v requires grad, so serving's calls carry no
+history.  Its backward is a second hand-written kernel where
+:func:`backward_takes` says so, from what the input is: bfloat16 CUDA
+tensors with a head dim of at most :data:`BWD_MAX_HEAD_DIM`
+(``csrc/flash_attention.cu``'s backward: dQ, dK and dV on the tensor
+cores from the forward's row log-sum-exp, which the forward then also
+stores); every other input (float32, gemma3's head of 256, CPU tensors)
+takes :func:`flash_attention_bwd`, written in torch ops.  The kernel
+reads the output gradient in place, as the forward reads q, k and v: its
+head dimension must be contiguous and its other strides multiples of 16
+bytes, and it raises, with the reason, where they are not (it never
+copies).  So ``flash_attention(q, k, v).sum().backward()`` on bfloat16
+CUDA tensors raises (autograd passes an expanded gradient, of stride 0);
+pass the gradient as a tensor, ``out.backward(torch.ones_like(out))``.
+The reference has no backward kernel: its training differentiates
+``layers._chunked_attn`` with ``jax.grad``.  Inside a traced top-level
+call (a train step or an engine step under a profiler,
 :mod:`repro_torch.obs.spans`) each forward, remat's included, is a
 ``repro.flash.fwd`` span and each backward a ``repro.flash.bwd`` one,
-with its device interval; they stay out of the profiler's trace, which
-names the kernel and the backward's autograd node already.
+with its device interval, and each backward counts one call of its path,
+``repro.flash.bwd_kernel`` or ``repro.flash.bwd_plain``; the spans stay
+out of the profiler's trace, which names the kernels and the backward's
+autograd node already.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` and the body of ``repro/models/layers.py::_chunked_attn``
@@ -53,11 +67,14 @@ from ..obs import spans
 from . import cuda_lib
 from .ref import flash_attention_ref
 
-__all__ = ["BWD_BLOCK", "FlashAttentionFn", "MAX_HEAD_DIM", "flash_attention",
-           "flash_attention_bwd", "launches"]
+__all__ = ["BWD_BLOCK", "BWD_MAX_HEAD_DIM", "FlashAttentionFn",
+           "MAX_HEAD_DIM", "backward_takes", "bwd_launches",
+           "flash_attention", "flash_attention_bwd", "launches"]
 
 #: launches of the CUDA kernel (CPU calls do not count)
 launches = cuda_lib.LaunchCounter("flash_attention")
+#: calls of the backward kernel (its four launches count as one)
+bwd_launches = cuda_lib.LaunchCounter("flash_attention_bwd")
 
 #: float32 Q, K and V tiles of 64 rows must fit the 227 KB of shared memory,
 #: and a bfloat16 head is at most four 64-column panels
@@ -66,7 +83,14 @@ _DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
 #: query rows per block of the backward: its float32 scores, probabilities
 #: and their gradients take O(BWD_BLOCK * Sk) per head
 BWD_BLOCK = 512
+#: the backward kernel keeps dK and dV of a 64-key tile in float32
+#: registers: heads of at most two 64-column panels
+BWD_MAX_HEAD_DIM = 128
+#: the forward's row log-sum-exp is stored for rows padded to a multiple of
+#: this (the backward kernel's tiles of queries)
+LSE_ROWS = 64
 _fn = None
+_bwd_fn = None
 
 
 def _launcher():
@@ -75,10 +99,30 @@ def _launcher():
         fn = cuda_lib.load("flash_attention").flash_attention_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 8 + [ctypes.c_int64] * 12
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = cuda_lib.load("flash_attention").flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def backward_takes(dtype: torch.dtype, head_dim: int, device_type: str) -> bool:
+    """Does a call's backward run the kernel?  bfloat16 CUDA tensors with a
+    head dim of at most :data:`BWD_MAX_HEAD_DIM` (the bfloat16 forward
+    already takes only multiples of 8); float32, larger heads and CPU
+    tensors take :func:`flash_attention_bwd`."""
+    return (device_type == "cuda" and dtype == torch.bfloat16
+            and head_dim <= BWD_MAX_HEAD_DIM)
 
 
 def _check(q, k, v, causal, window, q_offset):
@@ -137,15 +181,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q ``(B, H, Sq, d)`` over k/v ``(B, KV, Sk, d)``
     (``Sq == Sk`` when ``causal``); returns a new contiguous ``(B, H, Sq,
     d)`` tensor, through :class:`FlashAttentionFn`, which carries a
-    gradient back to q, k or v where one is to flow."""
+    gradient back to q, k or v where one is to flow.  On bfloat16 CUDA
+    tensors with heads of at most :data:`BWD_MAX_HEAD_DIM` the gradient
+    that reaches the output must have a contiguous head dimension and
+    16-byte aligned strides (the backward kernel reads it in place and
+    raises otherwise; ``.sum().backward()`` hands it an expanded one)."""
     return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
 
 
-def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
-    """The kernel's launch on CUDA tensors, the plain version on CPU ones."""
+def _forward(q, k, v, causal, window, q_offset, lse: bool = False):
+    """The kernel's launch on CUDA tensors, the plain version on CPU ones;
+    returns ``(out, lse)``, where ``lse`` (asked for only where
+    :func:`backward_takes`) is each row's log2-sum-exp, float32 ``(B, H,
+    ld)`` with ``ld`` Sq rounded up to :data:`LSE_ROWS`, else None."""
     B, H, KV, S, Sk, d = _check(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=int(window))
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   window=int(window)), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
@@ -156,11 +208,15 @@ def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
         _check_tma(q, k, v)
     fn = _launcher()
     out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
+    ld = -(-S // LSE_ROWS) * LSE_ROWS
+    lse_t = (torch.empty((B, H, ld), dtype=torch.float32, device=q.device)
+             if lse else None)
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), B, H, KV, S, Sk, d, int(bool(causal)),
              int(window),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], torch.cuda.current_stream().cuda_stream)
+             *out.stride()[:3], lse_t.data_ptr() if lse else None, ld,
+             torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise RuntimeError(f"flash_attention: the driver refused a TMA tensor "
                            f"map (CUresult {-err}; B={B}, H={H}, KV={KV}, "
@@ -170,46 +226,106 @@ def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
                            f"error {err} (B={B}, H={H}, KV={KV}, Sq={S}, "
                            f"Sk={Sk}, d={d}, {q.dtype})")
     launches.add()
-    return out
+    return out, lse_t
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with a gradient: the forward is the kernel's launch
     (the plain version on CPU tensors), which it counts like any launch;
-    the backward is :func:`flash_attention_bwd` from the saved q, k, v and
-    output.  Under ``torch.utils.checkpoint`` the forward runs again in the
-    backward pass, and that launch counts too."""
+    the backward is the backward kernel where :func:`backward_takes` (from
+    the saved q, k, v, output and the forward's row log-sum-exp, which the
+    forward stores when an input requires grad), else
+    :func:`flash_attention_bwd`.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass, and that launch counts too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
         sp = spans.current()
         sid = sp.begin("repro.flash.fwd", mirror=False) if sp else 0
-        out = _forward(q, k, v, causal, window, q_offset)
+        kernel = (any(ctx.needs_input_grad[:3])
+                  and backward_takes(q.dtype, q.shape[-1], q.device.type))
+        out, lse = _forward(q, k, v, causal, window, q_offset, lse=kernel)
         if sp is not None:
             sp.end(sid)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = bool(causal), int(window)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         sp = spans.current()
         sid = sp.begin("repro.flash.bwd", mirror=False) if sp else 0
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
-                                         causal=ctx.causal, window=ctx.window)
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        if lse is not None:
+            dq, dk, dv = _backward(q, k, v, out, dout, lse, **kw)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, **kw)
         if sp is not None:
+            sp.count("repro.flash.bwd_kernel", int(lse is not None))
+            sp.count("repro.flash.bwd_plain", int(lse is None))
             sp.end(sid)
         return dq, dk, dv, None, None, None
+
+
+def _backward(q, k, v, out, dout, lse, *, causal, window):
+    """The backward kernel's launch: ``(dq, dk, dv)``, new contiguous
+    bfloat16 tensors, from the forward's inputs, ``out`` and ``lse`` and
+    the output gradient ``dout``, which it reads in place (bfloat16, the
+    head dimension contiguous, 16-byte aligned: it raises otherwise)."""
+    B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if tuple(dout.shape) != (B, H, S, d):
+        raise ValueError(f"dout must be (B, H, Sq, d) = {(B, H, S, d)}, got "
+                         f"{tuple(dout.shape)}")
+    if dout.dtype != torch.bfloat16 or dout.device != q.device:
+        raise TypeError(f"the backward kernel takes a bfloat16 dout on "
+                        f"{q.device}, got {dout.dtype} on {dout.device}")
+    if dout.stride(-1) != 1:
+        raise ValueError("dout's head dimension must be contiguous: the "
+                         "backward kernel reads it in place")
+    cuda_lib.require_aligned("dout", dout, {0: "batch", 1: "head",
+                                            2: "position"},
+                             "the backward kernel's TMA load")
+    ld = lse.shape[-1]
+    dq = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, Sk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, KV, Sk, d), dtype=v.dtype, device=q.device)
+    # float32 scratch: each query head's dK and dV, summed over its KV
+    # group, then D = rowsum(dO * O) of each query row
+    part = torch.empty(2 * B * H * Sk * d + B * H * ld, dtype=torch.float32,
+                       device=q.device)
+    strides = (ctypes.c_int64 * 24)(*[st for t in (q, k, v, out, dout, dq,
+                                                   dk, dv)
+                                      for st in t.stride()[:3]])
+    err = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        part.data_ptr() + 4 * (2 * B * H * Sk * d), part.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KV, S, Sk, d,
+        int(causal), int(window), ld, strides,
+        torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention backward: the driver refused a "
+                           f"TMA tensor map (CUresult {-err}; B={B}, H={H}, "
+                           f"KV={KV}, Sq={S}, Sk={Sk}, d={d})")
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed "
+                           f"with CUDA error {err} (B={B}, H={H}, KV={KV}, "
+                           f"Sq={S}, Sk={Sk}, d={d})")
+    bwd_launches.add()
+    return dq, dk, dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
                         causal: bool = True, window: int = 0):
-    """The gradient of :func:`flash_attention` in torch ops: returns ``(dq,
-    dk, dv)`` in the types of q, k and v for the output gradient ``dout``
-    ``(B, H, Sq, d)`` (any strides) at the forward's ``out``.
+    """The gradient of :func:`flash_attention` in torch ops, the backward
+    kernel's plain version (what :class:`FlashAttentionFn` runs where
+    :func:`backward_takes` does not): returns ``(dq, dk, dv)`` in the types
+    of q, k and v for the output gradient ``dout`` ``(B, H, Sq, d)`` (any
+    strides) at the forward's ``out``.
 
     The counterpart of what ``jax.grad`` computes through the reference's
     ``_chunked_attn``, which no Pallas kernel differentiates.  Query rows go

@@ -3,9 +3,11 @@ on the profiler's clock.
 
 The compiled driver's runs (``repro.compiled.*``), the train step
 (``repro.train.*``), flash attention's forward and backward
-(``repro.flash.*``), the MoE layer's stages (``repro.moe.*``) and the
-serving engine's steps (``repro.engine.*``) open spans here; every name
-starts with ``repro.``.
+(``repro.flash.*``; each backward also counts its path,
+``repro.flash.bwd_kernel`` or ``repro.flash.bwd_plain``), the MoE layer's
+stages (``repro.moe.*``) and the serving engine's steps
+(``repro.engine.*``) open spans here; every name starts with
+``repro.``.
 
 * **The switch.**  Spans are on while a torch profiler is active, and for
   a call made for a :class:`~repro_torch.api.session.Session` built with

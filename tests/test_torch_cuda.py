@@ -8,6 +8,8 @@ no JAX, so it also runs where only PyTorch is installed:
 """
 
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,8 +26,14 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,
 from repro_torch.linalg import (build_cholesky_graph, cholesky_extract,
                                 random_spd, to_tiles)
 from repro_torch.mp import ProcessPool, WorkerSpec
+from repro_torch.obs import span_trace, spans
 from repro_torch.replay import GraphCache
 import test_torch_mp_helpers as mp_helpers
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+# the flash gradients' derived limits
+from chip_smoke import flash_grad_reference, flash_grad_share  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -482,7 +490,8 @@ def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
     state = make_decode_state(model, cfg, {"tokens": prompts}, n_shards=lanes,
                               max_len=max_len)
     assert launch_counts() == {"tile_matmul": 0, "flash_attention": 2 * lanes,
-                               "decode_attention": 0, "ssd_scan": 0}
+                               "decode_attention": 0, "ssd_scan": 0,
+                               "adamw": 0, "flash_attention_bwd": 0}
     reset_launch_counts()
     with repro_torch.Session(2) as s:
         for _ in range(steps - 1):
@@ -491,7 +500,8 @@ def test_reduced_model_serves_on_card_graph_equals_plain_loop(cuda, dtype):
     torch.cuda.synchronize()
     assert launch_counts() == {"tile_matmul": 0, "flash_attention": 0,
                                "decode_attention": 2 * lanes * (steps - 1),
-                               "ssd_scan": 0}
+                               "ssd_scan": 0, "adamw": 0,
+                               "flash_attention_bwd": 0}
     assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
 
     loop = []
@@ -554,7 +564,7 @@ def test_reduced_cross_and_moe_models_serve_on_card(cuda, arch):
         "tile_matmul": 0,
         "flash_attention": (cfg.n_layers + cross + enc) * lanes,
         "decode_attention": (cfg.n_layers + cross) * lanes * (steps - 1),
-        "ssd_scan": 0}
+        "ssd_scan": 0, "adamw": 0, "flash_attention_bwd": 0}
     assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
     loop = []
     for b in range(lanes):
@@ -728,7 +738,8 @@ def test_reduced_ssm_model_serves_on_card_graph_equals_plain_loop(cuda, arch):
     assert launch_counts() == {"tile_matmul": 0,
                                "flash_attention": uses * lanes,
                                "decode_attention": 0,
-                               "ssd_scan": cfg.n_layers * lanes}
+                               "ssd_scan": cfg.n_layers * lanes,
+                               "adamw": 0, "flash_attention_bwd": 0}
     reset_launch_counts()
     with repro_torch.Session(2) as s:
         for _ in range(steps - 1):
@@ -737,7 +748,8 @@ def test_reduced_ssm_model_serves_on_card_graph_equals_plain_loop(cuda, arch):
     torch.cuda.synchronize()
     assert launch_counts() == {"tile_matmul": 0, "flash_attention": 0,
                                "decode_attention": uses * lanes * (steps - 1),
-                               "ssd_scan": 0}
+                               "ssd_scan": 0, "adamw": 0,
+                               "flash_attention_bwd": 0}
     assert all(torch.isfinite(sh.logits).all() for sh in state.shards)
 
     loop = []
@@ -983,16 +995,28 @@ def test_child_process_runs_each_kernel_against_its_plain_version(cuda):
     (2, 8, 2, 600, 600, 128, True, 0),
     (1, 8, 2, 600, 600, 128, True, 100),
     (1, 8, 2, 70, 530, 64, False, 0),
+    # both train cells' microbatches (qwen3-14b's heads), a non-causal
+    # cross shape with fewer keys than queries, zamba2's d = 112, the
+    # trainer's d = 64
+    (2, 40, 8, 1024, 1024, 128, True, 0),
+    (1, 40, 8, 4096, 4096, 128, True, 0),
+    (1, 4, 2, 530, 70, 112, False, 0),
+    (1, 32, 32, 512, 512, 112, True, 0),
+    (4, 12, 4, 256, 256, 64, True, 0),
 ])
 def test_flash_attention_gradients_on_card(cuda, dtype, B, H, KV, Sq, Sk, d,
                                            causal, window):
-    """``FlashAttentionFn`` on the card (the kernel's forward, the torch-op
-    backward) against autograd through the plain version in float32: the
-    forward bit-identical to the no-grad launch, one launch per call, the
-    same gradient bits twice, and each gradient within ``TOL`` of its
-    largest entry (float32: the float32 sums of both; bfloat16 also the
-    kernel's rounding of p and of the output, which dq and dk read through
-    rowsum(dO * O); chip_smoke.py holds them to the derived limit)."""
+    """``FlashAttentionFn`` on the card (the kernel's forward; the backward
+    kernel for bfloat16, the torch-op backward for float32) against
+    autograd through the plain version in float32: the forward
+    bit-identical to the no-grad launch, one launch per call, one
+    backward-kernel launch per bfloat16 call and none for float32, the
+    second call's path counted inside a traced call, the same gradient
+    bits twice, and each gradient within ``TOL`` of its largest entry
+    (float32: the float32 sums of both; bfloat16 also the kernel's rounding
+    of p and of the output, which dq and dk read through rowsum(dO * O),
+    and the backward kernel's final rounding) and within chip_smoke.py's
+    derived limit, element by element (``flash_grad_share``)."""
     from repro_torch.kernels import reset_launch_counts
 
     rng = np.random.default_rng(31)
@@ -1005,25 +1029,41 @@ def test_flash_attention_gradients_on_card(cuda, dtype, B, H, KV, Sq, Sk, d,
         direct = flash_attention(q, k, v, **kw)
     runs = []
     reset_launch_counts()
-    for _ in range(2):
+    for i in range(2):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = flash_attention(*leaves, **kw)
-        runs.append((out.detach(), *torch.autograd.grad(out, leaves, dout)))
+        call = spans.open_call("test.flash_grad", traced=True) if i else None
+        try:
+            out = flash_attention(*leaves, **kw)
+            runs.append((out.detach(), *torch.autograd.grad(out, leaves,
+                                                            dout)))
+        finally:
+            if call is not None:
+                call.close()
     torch.cuda.synchronize()
+    kernel = dt == torch.bfloat16
+    counters = span_trace().counters
     assert launch_counts()["flash_attention"] == 2
+    assert launch_counts()["flash_attention_bwd"] == 2 * kernel
+    assert counters["repro.flash.bwd_kernel"] == int(kernel)
+    assert counters["repro.flash.bwd_plain"] == int(not kernel)
     assert torch.equal(runs[0][0], direct)
     for a, b in zip(runs[0], runs[1]):
         assert torch.equal(a, b)
-    ref = [t.float().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(flash_attention_ref(*ref, **kw), ref,
-                               dout.float())
-    for name, got, w in zip(("dq", "dk", "dv"), runs[0][1:], want):
+    want_out, out_limit, want, shifts = flash_grad_reference(q, k, v, dout,
+                                                             **kw)
+    assert ((runs[0][0].float() - want_out).abs() <= out_limit).all()
+    del want_out, out_limit
+    for name, got, w, shift in zip(("dq", "dk", "dv"), runs[0][1:], want,
+                                   shifts + (None,)):
         assert got.dtype == dt and got.shape == w.shape, name
+        assert torch.isfinite(got.float()).all(), name
         scale = w.abs().max().item()
         np.testing.assert_allclose(
             got.float().cpu().numpy(), w.cpu().numpy(),
             rtol=TOL[dtype]["rtol"], atol=TOL[dtype]["atol"] * scale,
             err_msg=name)
+        share = flash_grad_share(got, w, shift, dt)[1]
+        assert share <= 1.0, (name, share)
 
 
 @pytest.mark.parametrize("overlap", ["serial", "hybrid"])
